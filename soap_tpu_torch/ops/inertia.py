@@ -1,0 +1,189 @@
+"""Iterative ellipsoidal inertia tensors, batched over halos.
+
+Reference algorithm (``SOAP/property_calculation/inertia_tensors.py``,
+ported from ``soap_tpu/ops/inertia.py``):
+ - start from a sphere of the aperture radius;
+ - compute I_ij = sum w x_i x_j / sum w over the selected particles
+   inside the ellipsoid (each divided by |x|^2 when reduced),
+   eigendecompose, reshape the ellipsoid to the eigenvalue axis ratios
+   at fixed volume, re-select, and iterate until the axis ratio
+   q = sqrt(l1/l2) changes by < 1e-4, at most 20 iterations;
+ - a config needs >= 20 particles inside the initial sphere;
+ - output order (xx, yy, zz, xy, xz, yz).
+
+``inertia_tensor_multi`` packs a (B halos x C configs) request into the
+layout of the inertia loop (``ops/inertia_loop.py``): positions as
+(B, 3, K) planes, per-config masks as bits of i32 words, and the
+per-config radius, reduced flag, iteration limit, occupied prefix and
+initial done flag as (B, C) rows.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from soap_tpu_torch.ops.inertia_loop import inertia_loop
+
+TOL = 1.0e-4
+MIN_PARTICLES = 20
+
+
+def sym_eigh_3x3(A: torch.Tensor):
+    """Closed-form eigendecomposition of symmetric (..., 3, 3) matrices.
+
+    Trigonometric eigenvalues and cross-product eigenvectors in float64
+    (f32 trigonometry limits eigenvalues to ~2e-4 relative accuracy, too
+    coarse for the 1e-4 axis-ratio test).  Returns (w ascending (..., 3),
+    V (..., 3, 3) with eigenvectors as columns) in the input dtype.
+    """
+    in_dtype = A.dtype
+    A = A.to(torch.float64)
+    a00, a11, a22 = A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]
+    a01, a02, a12 = A[..., 0, 1], A[..., 0, 2], A[..., 1, 2]
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    q = (a00 + a11 + a22) / 3.0
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2, min=0.0) / 6.0)
+    p_safe = torch.clamp(p, min=1e-30)
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    B = (A - q[..., None, None] * eye) / p_safe[..., None, None]
+    detB = (
+        B[..., 0, 0] * (B[..., 1, 1] * B[..., 2, 2] - B[..., 1, 2] * B[..., 2, 1])
+        - B[..., 0, 1] * (B[..., 1, 0] * B[..., 2, 2] - B[..., 1, 2] * B[..., 2, 0])
+        + B[..., 0, 2] * (B[..., 1, 0] * B[..., 2, 1] - B[..., 1, 1] * B[..., 2, 0])
+    )
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    w2 = q + 2.0 * p * torch.cos(phi)  # largest
+    w0 = q + 2.0 * p * torch.cos(phi + 2.0 * np.pi / 3.0)  # smallest
+    w1 = 3.0 * q - w2 - w0
+    degenerate = p2 <= 1e-30 * torch.clamp(q * q, min=1e-30)
+    w = torch.stack([w0, w1, w2], -1)
+    w = torch.where(degenerate[..., None], q[..., None].expand_as(w), w)
+
+    def eigenvector(lam):
+        # v is orthogonal to the rows of (A - lam I): take the largest of
+        # the three row cross products (first one on ties)
+        M = A - lam[..., None, None] * eye
+        c = torch.stack(
+            [
+                torch.linalg.cross(M[..., 0, :], M[..., 1, :]),
+                torch.linalg.cross(M[..., 0, :], M[..., 2, :]),
+                torch.linalg.cross(M[..., 1, :], M[..., 2, :]),
+            ],
+            -2,
+        )  # (..., 3, 3): candidate vectors as rows
+        n = (c * c).sum(-1)
+        best = torch.argmax(n, -1)
+        v = torch.gather(c, -2, best[..., None, None].expand(*best.shape, 1, 3))[..., 0, :]
+        nrm = torch.sqrt(torch.clamp((v * v).sum(-1), min=1e-37))
+        return v / nrm[..., None]
+
+    v0 = eigenvector(w0)
+    v2 = eigenvector(w2)
+    # orthonormal right-handed frame, robust when w1 nears a neighbour
+    v2 = v2 - v0 * (v0 * v2).sum(-1, keepdim=True)
+    v2 = v2 / torch.sqrt(torch.clamp((v2 * v2).sum(-1, keepdim=True), min=1e-37))
+    v1 = torch.linalg.cross(v2, v0)
+    V = torch.stack([v0, v1, v2], -1)
+    V = torch.where(degenerate[..., None, None], eye, V)
+    return w.to(in_dtype), V.to(in_dtype)
+
+
+class InertiaResult(NamedTuple):
+    tensor: torch.Tensor  # (B, C, 6) flattened tensors
+    found: torch.Tensor  # (B, C) bool: enough particles
+    needs_bigger: torch.Tensor  # (B, C) bool: ellipsoid beyond the region
+
+
+def pack_mask_words(masks: torch.Tensor) -> torch.Tensor:
+    """(B, C, K) bool -> (B, W, K) i32 words, config c = bit c%32 of
+    word c//32."""
+    B, C, K = masks.shape
+    W = -(-C // 32)
+    words = torch.zeros((B, W, K), dtype=torch.int32, device=masks.device)
+    for c in range(C):
+        words[:, c // 32] |= masks[:, c].to(torch.int32) << (c % 32)
+    return words
+
+
+def pack_inertia_inputs(
+    weights: torch.Tensor,  # (B, K) shared by every config
+    pos: torch.Tensor,  # (B, K, 3) halo-relative positions
+    masks: torch.Tensor,  # (B, C, K) per-config selection
+    sphere_radius: torch.Tensor,  # (B, C)
+    reduced: Sequence[bool],  # (C,) 1/r^2 weighting
+    iterative: Sequence[bool],  # (C,) 20 iterations vs 1
+    max_iterations: int = 20,
+):
+    """(inertia-loop arguments, enough (B, C)) for a request: the
+    caller-side packing of ``soap_tpu/ops/inertia.py`` (zero-radius rows
+    leave reduced configs, the MIN_PARTICLES gate, mask bit words, each
+    config's occupied prefix)."""
+    B, C, K = masks.shape
+    dev = pos.device
+    red = torch.as_tensor(np.asarray(reduced, bool), device=dev)
+    it = torch.as_tensor(np.asarray(iterative, bool), device=dev)
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+    r2 = x * x + y * y + z * z  # (B, K)
+    zero_r = torch.abs(r2) <= 1e-8  # jnp.isclose(r2, 0.0)
+    masks = masks & ~(red[None, :, None] & zero_r[:, None, :])
+    R = sphere_radius.to(torch.float32).contiguous()
+    init_inside = masks & (r2[:, None, :] <= (R * R)[:, :, None])
+    n_init = init_inside.sum(-1)
+    enough = (masks.sum(-1) >= MIN_PARTICLES) & (n_init >= MIN_PARTICLES)
+    # occupied prefix: index after each config's last selected row
+    row = torch.arange(1, K + 1, dtype=torch.int32, device=dev)
+    occ = torch.where(masks, row, 0).amax(-1)
+
+    def per_config(v):
+        return v.to(torch.int32).expand(B, C).contiguous()
+
+    args = (
+        torch.stack([x, y, z], 1).contiguous(),  # (B, 3, K)
+        weights.to(torch.float32).contiguous(),
+        pack_mask_words(masks),
+        R,
+        per_config(red),
+        per_config(torch.where(it, max_iterations, 1)),
+        per_config(occ),
+        per_config(~enough),
+        max_iterations,
+    )
+    return args, enough
+
+
+def inertia_tensor_multi(
+    weights: torch.Tensor,  # (B, K) shared by every config
+    pos: torch.Tensor,  # (B, K, 3) halo-relative positions
+    masks: torch.Tensor,  # (B, C, K) per-config selection
+    sphere_radius: torch.Tensor,  # (B, C)
+    reduced: Sequence[bool],  # (C,) 1/r^2 weighting
+    iterative: Sequence[bool],  # (C,) 20 iterations vs 1
+    search_radius: Optional[torch.Tensor] = None,  # (B,) (None: no check)
+    check_search: Optional[Sequence[bool]] = None,  # (C,)
+    max_iterations: int = 20,
+) -> InertiaResult:
+    """Every (halo, config) 3D inertia tensor through one inertia loop.
+
+    Per-config semantics are those of ``soap_tpu.ops.inertia.
+    inertia_tensor_multi`` (its iterative path).  Rows are expected
+    radius-sorted, so each config's selection is dense in a prefix; the
+    loop sweeps only up to each config's last selected row.
+    """
+    args, enough = pack_inertia_inputs(
+        weights, pos, masks, sphere_radius, reduced, iterative, max_iterations
+    )
+    out = inertia_loop(*args)
+    # loop order [xx, xy, xz, yy, yz, zz] -> result order [xx, yy, zz, xy, xz, yz]
+    flat = out[..., [0, 3, 5, 1, 2, 4]]
+    flat = torch.where(enough[..., None], flat, 0.0)
+    if search_radius is None or check_search is None:
+        needs_bigger = torch.zeros_like(enough)
+    else:
+        chk = torch.as_tensor(np.asarray(check_search, bool), device=pos.device)
+        needs_bigger = chk[None, :] & enough & (args[3] > search_radius[:, None])
+    return InertiaResult(flat, enough, needs_bigger)

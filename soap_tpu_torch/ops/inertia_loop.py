@@ -1,0 +1,192 @@
+"""The iterative inertia loop (kernel K2) and its plain PyTorch version.
+
+For each halo b and config c: start from the sphere of radius R[b, c];
+each iteration, over the config's selected rows inside the current
+ellipsoid (pos^T Q pos <= 1), sum w x_i x_j (times 1/r^2 when the
+config is reduced) and sum w, normalise, eigendecompose, and reshape the
+ellipsoid to the new axis ratios at fixed volume.  A config stops when
+its axis ratio q changes by < TOL, when q == 0 (degenerate), or at its
+iteration limit.  The update rules are those of the while loop in
+``soap_tpu/ops/inertia.py`` (``inertia_tensor_multi``).
+
+Layout (the JAX kernel's, unpacked from its (8, 128) rows):
+ - pos3 (B, 3, K) f32 positions, rows radius-sorted;
+ - w (B, K) f32 weights shared by all configs;
+ - mw (B, W, K) i32 masks: config c selects a row when bit c % 32 of
+   word c // 32 is set;
+ - R (B, C) f32 sphere radii; reduced, limit, occ (index after the
+   config's last selected row) and done0 (B, C) i32;
+ - out (B, C, 6) f32 tensors as [xx, xy, xz, yy, yz, zz].
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from soap_tpu_torch.ops import kernel_lib
+
+#: configs one CUDA launch carries (state lives in shared memory)
+MAX_C = 128
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    # torch has no cbrt; float64 pow rounds to the f32 cube root
+    return torch.pow(x.to(torch.float64), 1.0 / 3.0).to(torch.float32)
+
+
+def inertia_loop_plain(
+    pos3: torch.Tensor,
+    w: torch.Tensor,
+    mw: torch.Tensor,
+    R: torch.Tensor,
+    reduced: torch.Tensor,
+    limit: torch.Tensor,
+    occ: torch.Tensor,
+    done0: torch.Tensor,
+    max_iterations: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2 (the port of the jnp while loop).
+
+    ``occ`` only bounds where the kernel stops reading: rows past it
+    carry no selected bit, so the plain version needs no prefix."""
+    from soap_tpu_torch.ops.inertia import TOL, sym_eigh_3x3
+
+    B, _, K = pos3.shape
+    C = R.shape[1]
+    dev = pos3.device
+    x, y, z = (pos3[:, i, None, :] for i in range(3))  # (B, 1, K)
+    cfg = torch.arange(C, device=dev)
+    words = mw.index_select(1, cfg // 32)  # (B, C, K)
+    masks = ((words >> (cfg % 32)[None, :, None]) & 1).bool()
+    r2 = x * x + y * y + z * z
+    inv_r2 = 1.0 / torch.where(torch.abs(r2) <= 1e-8, 1.0, r2)
+    w_in = w[:, None, :]
+    w_inv = w_in * inv_r2
+    red = reduced.bool()[..., None]
+
+    val = torch.ones((B, C, 3), dtype=torch.float32, device=dev)
+    vec = torch.eye(3, dtype=torch.float32, device=dev).expand(B, C, 3, 3)
+    ten = torch.zeros((B, C, 6), dtype=torch.float32, device=dev)
+    old_q = torch.full((B, C), 1000.0, dtype=torch.float32, device=dev)
+    done = done0.bool()
+    for i in range(max_iterations):
+        if bool(done.all()):
+            break
+        v0, v1, v2 = val[..., 0], val[..., 1], val[..., 2]
+        q_now = torch.sqrt(v1 / v2)
+        converged = torch.abs((old_q - q_now) / torch.clamp(q_now, min=1e-37)) < TOL
+        s = torch.sqrt(v0 / v2)
+        p = torch.sqrt(v0 / v1)
+        axis = R[..., None] * torch.stack(
+            [_cbrt(s * p), _cbrt(q_now / p), 1.0 / _cbrt(q_now * s)], -1
+        )
+        ia = 1.0 / (axis * axis)  # (B, C, 3)
+
+        def qf(i_, j_):
+            return (
+                vec[..., i_, 0] * vec[..., j_, 0] * ia[..., 0]
+                + vec[..., i_, 1] * vec[..., j_, 1] * ia[..., 1]
+                + vec[..., i_, 2] * vec[..., j_, 2] * ia[..., 2]
+            )[..., None]
+
+        q00, q11, q22 = qf(0, 0), qf(1, 1), qf(2, 2)
+        q01, q02, q12 = 2.0 * qf(0, 1), 2.0 * qf(0, 2), 2.0 * qf(1, 2)
+        rr = x * (q00 * x + q01 * y + q02 * z) + y * (q11 * y + q12 * z) + q22 * z * z
+        inside = masks & (rr <= 1.0)
+        wsel = torch.where(inside, w_in, 0.0)
+        wi = torch.where(inside, torch.where(red, w_inv, w_in), 0.0)
+        # f32 products, f64 sums: the kernel's arithmetic, so both round
+        # every f32 quantity alike (see csrc/inertia_loop.cu)
+        sums = [
+            (wi * a * b).to(torch.float64).sum(-1)
+            for a, b in ((x, x), (x, y), (x, z), (y, y), (y, z), (z, z))
+        ]
+        inv = 1.0 / torch.clamp(wsel.to(torch.float64).sum(-1), min=1e-37)
+        t_new = torch.stack([s_ * inv for s_ in sums], -1).to(torch.float32)
+        xx, xy, xz, yy, yz, zz = t_new.unbind(-1)
+        full = torch.stack(
+            [
+                torch.stack([xx, xy, xz], -1),
+                torch.stack([xy, yy, yz], -1),
+                torch.stack([xz, yz, zz], -1),
+            ],
+            -2,
+        )
+        val_n, vec_n = sym_eigh_3x3(full)
+        val_n = torch.abs(val_n)
+        degenerate = q_now == 0.0
+        t_new = torch.where(degenerate[..., None], 0.0, t_new)
+        stop = converged | degenerate | (i + 1 >= limit)
+        active = ~done
+        upd = active & ~(converged | degenerate)
+        ten = torch.where((active & ~converged)[..., None], t_new, ten)
+        val = torch.where(upd[..., None], val_n, val)
+        vec = torch.where(upd[..., None, None], vec_n, vec)
+        old_q = torch.where(upd, q_now, old_q)
+        done = done | (active & stop)
+    return ten
+
+
+#: launches of the K2 CUDA kernel (incremented only where it launches)
+launches = 0
+
+
+def _check(name, t, dtype, shape):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"inertia_loop: {name} must be contiguous {dtype} {tuple(shape)}, "
+            f"got {t.dtype} {tuple(t.shape)}"
+        )
+
+
+def inertia_loop(
+    pos3: torch.Tensor,
+    w: torch.Tensor,
+    mw: torch.Tensor,
+    R: torch.Tensor,
+    reduced: torch.Tensor,
+    limit: torch.Tensor,
+    occ: torch.Tensor,
+    done0: torch.Tensor,
+    max_iterations: int,
+) -> torch.Tensor:
+    """(B, C, 6) final tensors.  CUDA tensors launch K2; CPU tensors take
+    the plain version; anything else raises."""
+    args = (pos3, w, mw, R, reduced, limit, occ, done0)
+    if all(t.device.type == "cpu" for t in args):
+        return inertia_loop_plain(*args, max_iterations)
+    dev = pos3.device
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError(
+            "inertia_loop: tensors on " + ", ".join(str(t.device) for t in args)
+        )
+    B, _, K = pos3.shape
+    C = R.shape[1]
+    W = mw.shape[1]
+    _check("pos3", pos3, torch.float32, (B, 3, K))
+    _check("w", w, torch.float32, (B, K))
+    _check("mw", mw, torch.int32, (B, W, K))
+    _check("R", R, torch.float32, (B, C))
+    for name, t in (("reduced", reduced), ("limit", limit), ("occ", occ), ("done0", done0)):
+        _check(name, t, torch.int32, (B, C))
+    if not 0 < C <= MAX_C or W * 32 < C:
+        raise ValueError(f"inertia_loop: C={C} configs need 1..{MAX_C}, W={W} words")
+    out = torch.empty((B, C, 6), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    global launches
+    lib = kernel_lib.load("inertia_loop")
+    fn = lib.inertia_loop_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    rc = fn(
+        pos3.data_ptr(), w.data_ptr(), mw.data_ptr(), R.data_ptr(),
+        reduced.data_ptr(), limit.data_ptr(), occ.data_ptr(), done0.data_ptr(),
+        B, K, W, C, int(max_iterations),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernel_lib.check(rc, "inertia_loop_f32")
+    launches += 1
+    return out

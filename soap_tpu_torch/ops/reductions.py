@@ -1,0 +1,45 @@
+"""Masked reductions over a batch of padded halo slices.
+
+Every function takes a leading halo axis: per-particle arrays are
+(B, K) or (B, K, D) with a (B, K) validity/selection mask, and reduce
+over the particle axis (ported from ``soap_tpu/ops/reductions.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum of x over the selected particles; x is (B, K) or (B, K, D)."""
+    if x.dim() > mask.dim():
+        mask = mask[..., None]
+    return torch.where(mask, x, 0).sum(1)
+
+
+def masked_count(mask: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """Number of selected particles per halo."""
+    return mask.sum(1).to(dtype)
+
+
+def centre_of_mass(
+    mass: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(total mass (B,), centre of mass (B, 3)) over the selected
+    particles, with halo-relative ``pos``."""
+    m = torch.where(mask, mass, 0.0)
+    mtot = m.sum(1)
+    com = (m[..., None] * pos).sum(1) / torch.clamp(mtot, min=1e-37)[:, None]
+    return mtot, torch.where(mtot[:, None] > 0, com, 0.0)
+
+
+def centre_of_mass_velocity(
+    mass: torch.Tensor, vel: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Mass-weighted mean velocity (B, 3) of the selected particles."""
+    m = torch.where(mask, mass, 0.0)
+    mtot = m.sum(1)
+    v = (m[..., None] * vel).sum(1) / torch.clamp(mtot, min=1e-37)[:, None]
+    return torch.where(mtot[:, None] > 0, v, 0.0)

@@ -1,0 +1,103 @@
+"""The port's device staging against the JAX package's host staging.
+
+On the seed-11 mock, ``soap_tpu_torch.pipeline.chunk_data.stage_ptype``
+must give the same cell-sorted packed store and summed-area tables bit
+for bit, and the presize pass the same radii and candidate counts.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from soap_tpu.pipeline import chunk_data as jcd
+from soap_tpu.utils import mock_data
+from soap_tpu_torch.pipeline import chunk_data as tcd
+
+
+@pytest.fixture(scope="module")
+def staged():
+    uni = mock_data.build_mock_universe(n_halos=12, n_field=8000, boxsize=25.0, seed=11)
+    groupnr = np.full(len(uni.ids), -1, dtype=np.int64)
+    id_to_row = np.empty(int(uni.ids.max()) + 1, dtype=np.int64)
+    id_to_row[uni.ids] = np.arange(len(uni.ids))
+    for hi, ids in enumerate(uni.bound_ids):
+        groupnr[id_to_row[ids]] = hi
+    fields = {
+        "Masses": uni.mass.astype(np.float32),
+        "Velocities": uni.vel.astype(np.float32),
+        "GroupNr_bound": groupnr,
+        "FOFGroupIDs": uni.fof_ids,
+        "ParticleIDs": uni.ids,  # uint64 bit pattern rides the store too
+    }
+    jpt = jcd.stage_ptype(uni.pos, fields, uni.boxsize)
+    tpt = tcd.stage_ptype(uni.pos, fields, uni.boxsize, torch.device("cpu"))
+    return uni, fields, jpt, tpt
+
+
+def test_stage_ptype_bit_equal(staged):
+    _, _, jpt, tpt = staged
+    assert tpt.spec.dims == jpt.spec.dims
+    assert tpt.spec.cell_size == pytest.approx(jpt.spec.cell_size, rel=0, abs=0)
+    assert tpt.row_width == jpt.row_width
+    assert tpt.cols_f == jpt.cols_f and tpt.cols_i == jpt.cols_i
+    for name in ("offsets", "counts", "sat", "mass_sat"):
+        a, b = np.asarray(getattr(jpt, name)), getattr(tpt, name).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+    rows = np.asarray(jpt.packed_lines).reshape(-1, jpt.row_width)
+    assert rows.tobytes() == tpt.packed.numpy().tobytes()
+
+
+@pytest.mark.parametrize(
+    "name", ["Masses", "Velocities", "GroupNr_bound", "FOFGroupIDs", "ParticleIDs"]
+)
+def test_unpack_field_matches_sorted_input(staged, name):
+    uni, fields, jpt, tpt = staged
+    n = jpt.n
+    want = np.asarray(jpt.field(name))[:n]
+    got = tcd.unpack_field(tpt.packed, tpt.cols_f, tpt.cols_i, name)[:n].numpy()
+    if want.dtype == np.uint64:
+        want = want.view(np.int64)  # the port keeps ids as their int64 bits
+    np.testing.assert_array_equal(got, want)
+
+
+def test_chunk_from_numpy_round_trips(staged):
+    _, _, jpt, tpt = staged
+    jchunk = jcd.ChunkData(boxsize=25.0, ptypes={"PartType1": jpt})
+    chunk = tcd.chunk_from_numpy(jchunk, torch.device("cpu"))
+    pt = chunk.ptypes["PartType1"]
+    assert chunk.boxsize == 25.0 and pt.n == jpt.n and pt.spec == tpt.spec
+    for name in ("packed", "offsets", "counts", "sat", "mass_sat"):
+        a, b = getattr(pt, name), getattr(tpt, name)
+        # compare bits: int bit-halves in the f32 store may read as NaN
+        assert a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes(), name
+    assert np.asarray(jpt.packed_lines).tobytes() == pt.packed.numpy().tobytes()
+
+
+@pytest.mark.parametrize("presize", [True, False])
+def test_presize_and_count_match(staged, presize):
+    uni, _, jpt, tpt = staged
+    rng = np.random.default_rng(5)
+    H = uni.n_halos + 8
+    # the catalogue halos plus field points, radii from tiny (the
+    # growth ladder runs to its end) to larger than the halo
+    centres = np.concatenate([uni.halo_pos, rng.uniform(0, 25.0, (8, 3))])
+    chi = centres.astype(np.float32)
+    r0 = (rng.uniform(0.001, 1.5, H) * uni.halo_renclose.max()).astype(np.float32)
+    eligible = rng.random(H) < 0.8
+    rho_crit0 = 3.0 * (100.0 * uni.h) ** 2 / (8.0 * np.pi * mock_data.G_INTERNAL)
+    target = 200.0 * rho_crit0 * (uni.omega_m + uni.omega_lambda) / 1.5
+
+    jchunk = jcd.ChunkData(boxsize=25.0, ptypes={"PartType1": jpt})
+    r_j, c_j, _ = jcd.presize_and_count(
+        jchunk, jnp.asarray(chi), jnp.asarray(r0), jnp.asarray(eligible),
+        jnp.float32(target), ("PartType1",), presize,
+    )
+    tchunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": tpt})
+    r_t, c_t = tcd.presize_and_count(
+        tchunk, torch.from_numpy(chi), torch.from_numpy(r0),
+        torch.from_numpy(eligible), target, ("PartType1",), presize,
+    )
+    np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
+    np.testing.assert_array_equal(c_t[0].numpy(), np.asarray(c_j[0]))
