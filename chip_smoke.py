@@ -5,17 +5,25 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one line and raising on failure:
+Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
  2. build: both CUDA kernels from soap_tpu_torch/csrc into
-    build/soap_tpu_torch;
+    build/soap_tpu_torch, one nvcc per source, started together;
  3. K1 (range gather) against its plain version on a 10.5M x 16 store;
- 4. K2 (inertia loop) against its plain version, at the main-path cell
-    (B=256, K=32768, C=2) and at one giant halo (K=2^20);
+ 4. K2 (inertia loop) against its plain version at three cells: the main
+    path's (B=256, K=32768, C=2; one CTA per halo), a middle one (B=64,
+    K=131072; clusters of 2) and one giant halo (B=1, K=2^20; a cluster
+    of 16), each also launched twice for torch.equal results;
  5. the engine on the GPU against the engine on the CPU, on a 64-halo mock
     with satellites and halos forced round the retry ladder;
  6. the main path at the bench DMO scale (2048 halos, 9.62M particles):
-    a warm pass, then a timed pass with every launch counter reset.
+    a warm pass, then TIMED_PASSES timed passes, each with every launch
+    counter set to 0 just before it and read just after, then a checked
+    pass that holds every K1 and K2 call against its plain version at the
+    shapes the path gives it;
+ 7. the giant-halo path: bench.py's giant configuration (6 halos of
+    0.9-1.6M particles) through the same engine and the same passes,
+    where K2 runs in clusters.
 It then prints the kernels' JSON line, the card's nvidia-smi line, and
 last a JSON object with "ok": true.  Without a CUDA device it exits 1
 before printing any result.  Imports torch, numpy and soap_tpu_torch
@@ -26,11 +34,13 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from soap_tpu_torch.models.context import HaloContext
+from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
 from soap_tpu_torch.ops import kernel_lib
 from soap_tpu_torch.ops import range_gather as rg
@@ -42,11 +52,19 @@ from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import build_mock_universe
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
+TIMED_PASSES = 5  # per engine path
 ENGINE_SEED = 11
 BENCH = dict(
     n_halos=2048, n_field=400000, boxsize=170.0, seed=20260816,
     mass_range=(3.2, 3000.0),
 )
+#: bench.py::bench_giant's universe
+GIANT = dict(
+    n_halos=6, n_field=200_000, boxsize=170.0, seed=4242,
+    mass_range=(9.0e4, 1.6e5),
+)
+#: K2 cells: name, B, K
+K2_CELLS = (("main", 256, 32768), ("middle", 64, 131072), ("giant", 1, 1 << 20))
 
 
 def say(phase, msg):
@@ -81,8 +99,10 @@ def time_ms(fn, reps=5):
 
 def phase_build():
     t0 = time.perf_counter()
-    for name in ("range_gather", "inertia_loop"):
-        kernel_lib.build(name)
+    names = ("range_gather", "inertia_loop")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(kernel_lib.build, names))
+    for name in names:
         kernel_lib.load(name)
     say("build", f"range_gather + inertia_loop into {kernel_lib.BUILD_DIR} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernel_lib.BUILD_SECONDS})")
@@ -129,29 +149,50 @@ def _cloud(rng, B, K):
     return w, pos, masks, R
 
 
+def k2_err(what, got, ref):
+    """Max abs error of K2 against its plain version; raises on a
+    non-finite value or one outside rtol K2_RTOL + atol 1e-7 max|ref|."""
+    g, r = got.cpu().numpy(), ref.cpu().numpy()
+    if not g.size:
+        return 0.0
+    err = np.abs(g - r)
+    tol = K2_RTOL * np.abs(r) + 1e-7 * np.abs(r).max()
+    if not np.isfinite(g).all() or (err > tol).any():
+        raise AssertionError(
+            f"K2 {what}: {(err > tol).sum()} of {err.size} values off "
+            f"(max abs err {err.max():.3e})"
+        )
+    return float(err.max())
+
+
 def phase_k2(dev):
     rng = np.random.default_rng(2)
     cells = {}
-    for name, B, K in (("main", 256, 32768), ("giant", 1, 1 << 20)):
+    for name, B, K in K2_CELLS:
         w, pos, masks, R = (torch.from_numpy(x).to(dev) for x in _cloud(rng, B, K))
         args, enough = pack_inertia_inputs(w, pos, masks, R, [False, True], [True, True])
-        got = il.inertia_loop(*args)
+
+        def kernel():
+            return il.inertia_loop(*args, rows_radius_sorted=True)
+
+        il.cluster_launches.clear()
+        got = kernel()
+        again = kernel()
         ref = il.inertia_loop_plain(*args)
         torch.cuda.synchronize()
-        g, r = got.cpu().numpy(), ref.cpu().numpy()
-        err = np.abs(g - r)
-        tol = K2_RTOL * np.abs(r) + 1e-7 * np.abs(r).max()
-        if not np.isfinite(g).all() or (err > tol).any():
-            raise AssertionError(
-                f"K2 {name}: {(err > tol).sum()} of {err.size} values off "
-                f"(max abs err {err.max():.3e})"
-            )
-        ms = time_ms(lambda: il.inertia_loop(*args))
+        (G,) = il.cluster_launches
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {name}: two launches differ")
+        err = k2_err(name, got, ref)
+        ms = time_ms(kernel)
         plain_ms = time_ms(lambda: il.inertia_loop_plain(*args))
-        cells[name] = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms)
-        say("K2", f"{name} B={B} K={K} C=2: within rtol {K2_RTOL} "
-            f"(max abs err {err.max():.3e}, found {int(enough.sum())}/{enough.numel()}); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        cells[name] = dict(cell=f"B={B} K={K} C=2", cluster_size=G,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        say("K2", f"{name} B={B} K={K} C=2 G={G}: within rtol {K2_RTOL}, two launches "
+            f"torch.equal (max abs err {err:.3e}, found "
+            f"{int(enough.sum())}/{enough.numel()}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        del w, pos, masks, R, args, got, again, ref
     return cells
 
 
@@ -242,44 +283,134 @@ def phase_engine(dev):
         f"retries; launches K1 {n1}, K2 {n2}")
 
 
-def phase_main(dev):
-    t0 = time.perf_counter()
-    uni = build_mock_universe(**BENCH)
-    t1 = time.perf_counter()
-    ctx, chunk, args = _bench_inputs(uni, dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    say("main", f"universe {len(uni.pos)} particles, {uni.n_halos} halos in "
-        f"{t1 - t0:.1f} s; staged on the GPU in {t2 - t1:.2f} s "
-        f"({chunk.ptypes['PartType1'].packed.shape[0]} rows)")
-    HaloEngine(ctx, chunk, slice_specs(), dev).process(**args)  # warm pass
+class PathCheck:
+    """Holds every K1 and K2 call of one engine pass against its plain
+    version on the same inputs, right after the call, and records the
+    shapes the path gave each kernel.  It wraps the names the engine calls
+    the wrappers through, so each launch counter still counts only the
+    engine's own launches; the plain versions count none."""
 
-    engine = HaloEngine(ctx, chunk, slice_specs(), dev)
+    def __init__(self):
+        self.k1 = dict(calls=0, max_abs_err=0.0, shapes={})
+        self.k2 = dict(calls=0, max_abs_err=0.0, shapes={})
+
+    def _note(self, rec, shape, err):
+        rec["calls"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+
+    def _k1(self, packed, table, S, capacity):
+        n = rg.launches
+        got = self._range_gather(packed, table, S, capacity)
+        if rg.launches == n:  # nothing to gather, no launch
+            return got
+        ref = rg.range_gather_blocks_plain(packed, table, S, capacity)
+        # bit for bit: the store's padding columns hold NaN
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K1 differs from its plain version at {tuple(got.shape)}")
+        err = (got - ref).nan_to_num(0.0).abs().max().item() if got.numel() else 0.0
+        self._note(self.k1, "B={} capacity={} F={}".format(*got.shape), err)
+        return got
+
+    def _k2(self, *args, **kw):
+        n, before = il.launches, dict(il.cluster_launches)
+        got = self._inertia_loop(*args, **kw)
+        if il.launches == n:  # no halos, no launch
+            return got
+        (G,) = (g for g, n in il.cluster_launches.items() if n != before.get(g, 0))
+        ref = il.inertia_loop_plain(*args)
+        (B, _, K), C = args[0].shape, args[3].shape[1]
+        self._note(self.k2, f"B={B} K={K} C={C} G={G}", k2_err(f"B={B} K={K}", got, ref))
+        return got
+
+    def __enter__(self):
+        self._range_gather, self._inertia_loop = rg.range_gather_blocks, inertia_ops.inertia_loop
+        rg.range_gather_blocks, inertia_ops.inertia_loop = self._k1, self._k2
+        return self
+
+    def __exit__(self, *exc):
+        rg.range_gather_blocks, inertia_ops.inertia_loop = self._range_gather, self._inertia_loop
+
+
+def drive_path(tag, uni, dev):
+    """A universe through the engine: a warm pass, then TIMED_PASSES timed
+    passes, each with every launch counter set to 0 just before it and
+    read just after, then one checked pass (PathCheck).  Returns the last
+    timed pass's results and counts, the rates of all, the peak device
+    memory over the timed passes and the checks."""
+    ctx, chunk, args = _bench_inputs(uni, dev)
+    HaloEngine(ctx, chunk, slice_specs(), dev).process(**args)  # warm pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rg.launches = il.launches = 0
-    t3 = time.perf_counter()
-    res = engine.process(**args)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t3
-    launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
+    rates = []
+    for _ in range(TIMED_PASSES):
+        engine = HaloEngine(ctx, chunk, slice_specs(), dev)
+        torch.cuda.synchronize()
+        rg.launches = il.launches = 0
+        il.cluster_launches.clear()
+        t0 = time.perf_counter()
+        res = engine.process(**args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
+        by_g = dict(sorted(il.cluster_launches.items()))
+        if min(launches.values()) == 0:
+            raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
+        rates.append(uni.n_halos / dt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
 
     H = uni.n_halos
     for group, d in res.items():
         for key, arr in d.items():
             if arr.shape[0] != H or not np.isfinite(np.asarray(arr, np.float64)).all():
-                raise AssertionError(f"{group}/{key}: shape {arr.shape} or non-finite")
-    if not (res["BoundSubhalo"]["Mtot"] > 0).all():
-        raise AssertionError("BoundSubhalo/Mtot not positive for every halo")
+                raise AssertionError(f"{tag} {group}/{key}: shape {arr.shape} or non-finite")
     if not (res["SO/200_crit"]["r"][args["is_central"]] > 0).all():
-        raise AssertionError("SO/200_crit/r not positive for every central")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"main path bypassed a kernel: {launches}")
-    say("main", f"{H} halos in {dt:.3f} s -> {H / dt:.2f} halos/s; "
-        f"{engine.stats.n_bucket_calls} bucket calls, {engine.stats.n_retries} "
-        f"retries; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches {launches}")
-    return launches
+        raise AssertionError(f"{tag} SO/200_crit/r not positive for every central")
+
+    with PathCheck() as check:
+        HaloEngine(ctx, chunk, slice_specs(), dev).process(**args)
+        torch.cuda.synchronize()
+    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
+        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
+                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    say(tag, f"{H} halos: halos/s over {TIMED_PASSES} timed passes median "
+        f"{np.median(rates):.2f} (min {min(rates):.2f}, max {max(rates):.2f}; "
+        f"{', '.join(f'{r:.2f}' for r in rates)}); {engine.stats.n_bucket_calls} "
+        f"bucket calls, {engine.stats.n_retries} retries; peak device memory "
+        f"{peak:.2f} GiB; launches {launches}, K2 launches by G {by_g}")
+    say(tag, f"checked pass, every call against its plain version: K1 "
+        f"bit-equal at {check.k1['shapes']}; K2 within rtol {K2_RTOL} at "
+        f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e})")
+    return dict(res=res, launches=launches, by_g=by_g,
+                check={"range_gather": check.k1, "inertia_loop": check.k2})
+
+
+def phase_main(dev):
+    t0 = time.perf_counter()
+    uni = build_mock_universe(**BENCH)
+    t1 = time.perf_counter()
+    say("main", f"universe {len(uni.pos)} particles, {uni.n_halos} halos in "
+        f"{t1 - t0:.1f} s")
+    run = drive_path("main", uni, dev)
+    if not (run["res"]["BoundSubhalo"]["Mtot"] > 0).all():
+        raise AssertionError("BoundSubhalo/Mtot not positive for every halo")
+    return run
+
+
+def phase_giant(dev):
+    t0 = time.perf_counter()
+    uni = build_mock_universe(**GIANT)
+    n_big = max(len(ids) for ids in uni.bound_ids)
+    say("giant", f"universe {len(uni.pos)} particles, {uni.n_halos} halos, biggest "
+        f"{n_big} particles; built in {time.perf_counter() - t0:.1f} s")
+    run = drive_path("giant", uni, dev)
+    ndm = run["res"]["BoundSubhalo"]["Ndm"]
+    want = np.array([len(ids) for ids in uni.bound_ids])
+    if not np.array_equal(ndm, want):
+        raise AssertionError(f"giant BoundSubhalo/Ndm {ndm.tolist()} != {want.tolist()}")
+    if not any(g > 1 for g in run["by_g"]):
+        raise AssertionError(f"giant path ran K2 in no cluster: by G {run['by_g']}")
+    return run
 
 
 def main():
@@ -295,19 +426,32 @@ def main():
 
     phase_build()
     k1 = phase_k1(dev)
-    k2 = phase_k2(dev)["main"]
+    k2 = phase_k2(dev)
     phase_engine(dev)
-    launches = phase_main(dev)
+    main_run = phase_main(dev)
+    giant_run = phase_giant(dev)
+
+    # launches: the main path's count; giant_path_launches: the giant
+    # path's; path_checks: each path's checked pass (calls, the shapes it
+    # gave the kernel, max abs err against the plain version).  The giant
+    # K2 cell stands for the streaming TPU kernel.
+    def path(name):
+        return dict(launches=main_run["launches"][name],
+                    giant_path_launches=giant_run["launches"][name],
+                    path_checks={"main": main_run["check"][name],
+                                 "giant": giant_run["check"][name]})
 
     kernels = [
         dict(name="range_gather", route="cuda",
              source="soap_tpu_torch/csrc/range_gather.cu",
-             replaces="soap_tpu/ops/dma_gather.py:247",
-             launches=launches["range_gather"], **k1),
+             replaces="soap_tpu/ops/dma_gather.py:247", **path("range_gather"), **k1),
+    ] + [
         dict(name="inertia_loop", route="cuda",
              source="soap_tpu_torch/csrc/inertia_loop.cu",
-             replaces="soap_tpu/ops/pallas_inertia.py:461",
-             launches=launches["inertia_loop"], **k2),
+             replaces="soap_tpu/ops/pallas_inertia.py:"
+                      + ("480" if cell == "giant" else "461"),
+             **path("inertia_loop"), **k2[cell])
+        for cell in k2
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

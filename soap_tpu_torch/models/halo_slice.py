@@ -189,6 +189,7 @@ class HaloSlice:
             [True] * len(cfgs),
             search_radius=search,
             check_search=checks if search is not None else None,
+            rows_radius_sorted=True,  # _pos_sorted ascends in radius
         )
         if search is not None:
             self.add_flag(result.needs_bigger.any(1))

@@ -166,18 +166,21 @@ def inertia_tensor_multi(
     search_radius: Optional[torch.Tensor] = None,  # (B,) (None: no check)
     check_search: Optional[Sequence[bool]] = None,  # (C,)
     max_iterations: int = 20,
+    rows_radius_sorted: bool = False,  # rows ascending in |pos|
 ) -> InertiaResult:
     """Every (halo, config) 3D inertia tensor through one inertia loop.
 
     Per-config semantics are those of ``soap_tpu.ops.inertia.
-    inertia_tensor_multi`` (its iterative path).  Rows are expected
-    radius-sorted, so each config's selection is dense in a prefix; the
-    loop sweeps only up to each config's last selected row.
+    inertia_tensor_multi`` (its iterative path).  The loop sweeps only
+    up to each config's last selected row, so radius-sorted rows, whose
+    selections are dense in a prefix, sweep least; with
+    ``rows_radius_sorted`` the kernel also stops at the ellipsoid's
+    extent, as the JAX kernel does.
     """
     args, enough = pack_inertia_inputs(
         weights, pos, masks, sphere_radius, reduced, iterative, max_iterations
     )
-    out = inertia_loop(*args)
+    out = inertia_loop(*args, rows_radius_sorted=rows_radius_sorted)
     # loop order [xx, xy, xz, yy, yz, zz] -> result order [xx, yy, zz, xy, xz, yz]
     flat = out[..., [0, 3, 5, 1, 2, 4]]
     flat = torch.where(enough[..., None], flat, 0.0)

@@ -17,11 +17,17 @@ Layout (the JAX kernel's, unpacked from its (8, 128) rows):
  - R (B, C) f32 sphere radii; reduced, limit, occ (index after the
    config's last selected row) and done0 (B, C) i32;
  - out (B, C, 6) f32 tensors as [xx, xy, xz, yy, yz, zz].
+
+The CUDA kernel runs one cluster of G CTAs per halo (``cluster_size``)
+and stops each config's sweep at the ellipsoid's extent when the rows
+are radius-sorted (``radius_table``); see ``csrc/inertia_loop.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict
 
 import torch
 
@@ -29,6 +35,20 @@ from soap_tpu_torch.ops import kernel_lib
 
 #: configs one CUDA launch carries (state lives in shared memory)
 MAX_C = 128
+#: CTAs in one halo's cluster: at most 16 (a size Hopper allows only as
+#: non-portable), each with at least MIN_CTA_ROWS of the halo's K rows
+MAX_CLUSTER = 16
+MIN_CTA_ROWS = 4096
+#: rows of one shared-memory tile of the sweep: 2048 in a cluster (a
+#: 160 KB ring, so one CTA per SM and a cluster spreads over G SMs),
+#: 1024 for a lone CTA (an 80 KB ring, two CTAs per SM)
+TILE_ROWS = 1024
+CLUSTER_TILE_ROWS = 2048
+#: radius-table entries per halo at most, and the fewest rows per entry
+MAX_TABLE = 1024
+MIN_TABLE_ROWS = 128
+#: what the launch returns when the card cannot place one cluster
+_NO_CLUSTER = -1
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +70,9 @@ def inertia_loop_plain(
     """Plain PyTorch version of K2 (the port of the jnp while loop).
 
     ``occ`` only bounds where the kernel stops reading: rows past it
-    carry no selected bit, so the plain version needs no prefix."""
+    carry no selected bit, so the plain version needs no prefix.  Nor
+    does it need the kernel's extent stop: rows past the ellipsoid's
+    extent are never inside it, so it sweeps every row."""
     from soap_tpu_torch.ops.inertia import TOL, sym_eigh_3x3
 
     B, _, K = pos3.shape
@@ -131,6 +153,50 @@ def inertia_loop_plain(
 
 #: launches of the K2 CUDA kernel (incremented only where it launches)
 launches = 0
+#: those launches by cluster size G
+cluster_launches: Dict[int, int] = {}
+
+
+def cluster_size(B: int, K: int, n_sm: int) -> int:
+    """CTAs per halo: the largest power of two G with B * G <= n_sm, so
+    that the B * G CTAs run in one wave of one CTA per SM, capped at
+    MAX_CLUSTER and so that K / G >= MIN_CTA_ROWS (G >= 1).  Fewer,
+    longer CTAs beat a second wave of shorter ones (``PERF.md``)."""
+    G = 1
+    while 2 * G <= MAX_CLUSTER and 2 * G * B <= n_sm and K >= 2 * G * MIN_CTA_ROWS:
+        G *= 2
+    return G
+
+
+def table_rows(K: int) -> int:
+    """Rows per radius-table entry: the smallest power of two, at least
+    MIN_TABLE_ROWS, that needs at most MAX_TABLE entries for K rows."""
+    T = MIN_TABLE_ROWS
+    while T * MAX_TABLE < K:
+        T *= 2
+    return T
+
+
+def radius_table(pos3: torch.Tensor, rows_radius_sorted: bool):
+    """((B, ceil(K / T)) f32 table, T): the radius of the first row of
+    each T-row tile, for the kernel's ellipsoid-extent stop, as a
+    running maximum over the tiles, so that the zero rows of empty
+    slots after a bucket's sorted rows do not extend the sweep.  The
+    stop is valid only on rows ascending in radius; for any other rows
+    every entry is -inf, and the kernel sweeps each config's whole
+    prefix."""
+    B, _, K = pos3.shape
+    T = table_rows(K)
+    if not rows_radius_sorted:
+        n = -(-K // T)
+        return torch.full((B, n), -torch.inf, dtype=torch.float32, device=pos3.device), T
+    x, y, z = pos3[:, :, ::T].unbind(1)
+    return torch.cummax(torch.sqrt(x * x + y * y + z * z), 1).values.contiguous(), T
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(name, t, dtype, shape):
@@ -151,9 +217,13 @@ def inertia_loop(
     occ: torch.Tensor,
     done0: torch.Tensor,
     max_iterations: int,
+    *,
+    rows_radius_sorted: bool = False,
 ) -> torch.Tensor:
     """(B, C, 6) final tensors.  CUDA tensors launch K2; CPU tensors take
-    the plain version; anything else raises."""
+    the plain version; anything else raises.  ``rows_radius_sorted``
+    says the rows ascend in radius, which lets the kernel stop each
+    sweep at the ellipsoid's extent."""
     args = (pos3, w, mw, R, reduced, limit, occ, done0)
     if all(t.device.type == "cpu" for t in args):
         return inertia_loop_plain(*args, max_iterations)
@@ -173,20 +243,32 @@ def inertia_loop(
         _check(name, t, torch.int32, (B, C))
     if not 0 < C <= MAX_C or W * 32 < C:
         raise ValueError(f"inertia_loop: C={C} configs need 1..{MAX_C}, W={W} words")
+    # the kernel copies rows in 16-byte chunks
+    if K % 4 or any(t.data_ptr() % 16 for t in (pos3, w, mw)):
+        raise ValueError(
+            f"inertia_loop: K={K} must be a multiple of 4 and pos3, w, mw "
+            "16-byte aligned"
+        )
     out = torch.empty((B, C, 6), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    table, T = radius_table(pos3, rows_radius_sorted)
+    G = cluster_size(B, K, _sm_count(dev))
+    tile = TILE_ROWS if G == 1 else CLUSTER_TILE_ROWS
     global launches
     lib = kernel_lib.load("inertia_loop")
     fn = lib.inertia_loop_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     rc = fn(
         pos3.data_ptr(), w.data_ptr(), mw.data_ptr(), R.data_ptr(),
         reduced.data_ptr(), limit.data_ptr(), occ.data_ptr(), done0.data_ptr(),
-        B, K, W, C, int(max_iterations),
+        table.data_ptr(), B, K, W, C, int(max_iterations), G, tile, T, table.shape[1],
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
+    if rc == _NO_CLUSTER:
+        raise RuntimeError(f"inertia_loop_f32: the card cannot place a cluster of {G} CTAs")
     kernel_lib.check(rc, "inertia_loop_f32")
     launches += 1
+    cluster_launches[G] = cluster_launches.get(G, 0) + 1
     return out

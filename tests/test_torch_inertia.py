@@ -66,25 +66,30 @@ def _edge(_seed):
                 search=1.0, check=[True, True, False])
 
 
-CASES = [("triaxial", _triaxial, s) for s in (0, 1, 2)] + [
-    ("sorted", _sorted_cloud, s) for s in (3, 4)
-] + [("edge", _edge, 0)]
+# (name, cloud, seed, rows_radius_sorted): the sorted clouds run with the
+# flag on (the JAX kernel's extent stop) and off
+CASES = [("triaxial", _triaxial, s, False) for s in (0, 1, 2)] + [
+    ("sorted", _sorted_cloud, s, rs) for s in (3, 4) for rs in (True, False)
+] + [("edge", _edge, 0, False)]
+CASE_IDS = [
+    f"{n}{s}" + ("-unsorted" if n == "sorted" and not rs else "") for n, _, s, rs in CASES
+]
 
 
-def _jax_one(c, pos, w, mask, R, search):
+def _jax_one(c, pos, w, mask, R, search, rows_radius_sorted):
     res = jI.inertia_tensor_multi(
         jnp.asarray(w), jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(R),
         np.asarray(c["red"]), np.asarray(c["it"]),
         search_radius=None if search is None else jnp.float32(search),
         check_search=None if search is None else np.asarray(c["check"]),
-        rows_radius_sorted=c.get("sorted", False),
+        rows_radius_sorted=rows_radius_sorted,
     )
     return [np.asarray(x) for x in res]
 
 
 @pytest.mark.parametrize("mode", ["0", "interpret"])
-@pytest.mark.parametrize("name,make,seed", CASES, ids=[f"{n}{s}" for n, _, s in CASES])
-def test_batched_inertia_matches_jax(monkeypatch, mode, name, make, seed):
+@pytest.mark.parametrize("name,make,seed,rows_radius_sorted", CASES, ids=CASE_IDS)
+def test_batched_inertia_matches_jax(monkeypatch, mode, name, make, seed, rows_radius_sorted):
     monkeypatch.setenv("SOAP_TPU_PALLAS_INERTIA", mode)
     c = make(seed)
     # a batch of 3 halos: the cloud, scaled by 2, and mirrored with its
@@ -101,11 +106,13 @@ def test_batched_inertia_matches_jax(monkeypatch, mode, name, make, seed):
         torch.from_numpy(R), c["red"], c["it"],
         search_radius=None if search is None else torch.from_numpy(search_b),
         check_search=c.get("check"),
+        rows_radius_sorted=rows_radius_sorted,
     )
     assert tloop.launches == 0  # CPU tensors: the plain version
     for b in range(3):
         t_j, found_j, nb_j = _jax_one(
-            c, pos[b], w[b], masks[b], R[b], None if search is None else search_b[b]
+            c, pos[b], w[b], masks[b], R[b], None if search is None else search_b[b],
+            rows_radius_sorted,
         )
         np.testing.assert_array_equal(ours.found[b].numpy(), found_j)
         np.testing.assert_array_equal(ours.needs_bigger[b].numpy(), nb_j)
@@ -138,3 +145,66 @@ def test_inertia_loop_device_rules():
     assert tloop.inertia_loop(*args).shape == (1, 1, 6)
     with pytest.raises(ValueError):
         tloop.inertia_loop(args[0].to("meta"), *args[1:])
+
+
+@pytest.mark.parametrize("K", [256, 32768, 1 << 20, 1 << 22])
+@pytest.mark.parametrize("B", [1, 8, 256, 4096])
+def test_cluster_size_rule(B, K):
+    """The largest power of two G with B * G <= the SM count (one wave of
+    one CTA per SM), capped at 16 and so that every CTA keeps at least
+    4096 of the K rows."""
+    for n_sm in (132, 114):
+        one_wave = max(g for g in (1, 2, 4, 8, 16) if g == 1 or B * g <= n_sm)
+        by_rows = max(g for g in (1, 2, 4, 8, 16) if g == 1 or K // g >= 4096)
+        want = min(one_wave, by_rows)
+        assert tloop.cluster_size(B, K, n_sm) == want
+    if B == 1 and K == 1 << 20:
+        assert tloop.cluster_size(B, K, 132) == 16
+    if B == 256:
+        assert tloop.cluster_size(B, K, 132) == 1
+    assert tloop.cluster_size(64, 131072, 132) == 2
+
+
+@pytest.mark.parametrize("K", [700, 1920, 300000])
+def test_radius_table_matches_numpy(K):
+    rng = np.random.default_rng(K)
+    B = 3
+    pos = (rng.normal(size=(B, K, 3)) * [1.5, 1.0, 0.7]).astype(np.float32)
+    r = np.linalg.norm(pos.astype(np.float64), axis=2)
+    srt = np.take_along_axis(pos, np.argsort(r, 1)[..., None], 1)
+    srt[0, K - K // 5:] = 0.0  # empty slots after the sorted rows
+    T = tloop.table_rows(K)
+    assert T >= 128 and T & (T - 1) == 0 and -(-K // T) <= 1024
+    assert T == 128 or -(-K // (T // 2)) > 1024
+    for rows, flag in ((srt, True), (pos, False), (srt, False)):
+        table, t = tloop.radius_table(torch.from_numpy(rows).permute(0, 2, 1).contiguous(), flag)
+        assert t == T and table.dtype == torch.float32 and table.shape == (B, -(-K // T))
+        if not flag:
+            assert torch.isneginf(table).all()
+            continue
+        first = rows[:, ::T]
+        x, y, z = first[..., 0], first[..., 1], first[..., 2]
+        want = np.maximum.accumulate(np.sqrt(x * x + y * y + z * z), axis=1)
+        # torch's vectorised CPU sqrt is not always correctly rounded: 1 ulp
+        np.testing.assert_allclose(table.numpy(), want, rtol=2.0**-23, atol=0.0)
+
+
+@pytest.mark.parametrize("rows_radius_sorted", [False, True])
+def test_rows_radius_sorted_reaches_only_the_loop(monkeypatch, rows_radius_sorted):
+    """``inertia_tensor_multi`` hands its flag to the inertia loop as a
+    keyword; the packed arguments are those the plain version takes."""
+    seen = []
+
+    def loop(*args, **kw):
+        seen.append(kw)
+        return tloop.inertia_loop_plain(*args)
+
+    monkeypatch.setattr(tI, "inertia_loop", loop)
+    c = _sorted_cloud(3)
+    res = tI.inertia_tensor_multi(
+        torch.from_numpy(c["w"][None]), torch.from_numpy(c["pos"][None]),
+        torch.from_numpy(c["masks"][None]), torch.from_numpy(c["R"][None]),
+        c["red"], c["it"], rows_radius_sorted=rows_radius_sorted,
+    )
+    assert seen == [{"rows_radius_sorted": rows_radius_sorted}]
+    assert res.tensor.shape == (1, 3, 6) and bool(res.found.all())
