@@ -3,31 +3,41 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # add --profile for a kernel profile
 
 Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
  2. build: both CUDA kernels from soap_tpu_torch/csrc into
     build/soap_tpu_torch, one nvcc per source, started together;
- 3. K1 (range gather) against its plain version on a 10.5M x 16 store;
- 4. K2 (inertia loop) against its plain version at three cells: the main
-    path's (B=256, K=32768, C=2; one CTA per halo), a middle one (B=64,
+ 3. K1 (range gather) against its plain version on a 10.5M x 16 store,
+    timed beside the one PyTorch call that computes the same rows
+    (torch.index_select on the precomputed row index);
+ 4. K2 (inertia loop) against its plain version at five cells: the bound
+    spec's (B=256, K=32768, C=2; one CTA per halo), an SO family's 8
+    densities x 4 configs on the same rows, folded into C=32 or, as the
+    engine lays them, as 8 x 256 halos at C=4, a middle one (B=64,
     K=131072; clusters of 2) and one giant halo (B=1, K=2^20; a cluster
     of 16), each also launched twice for torch.equal results;
- 5. the engine on the GPU against the engine on the CPU, on a 64-halo mock
-    with satellites and halos forced round the retry ladder;
- 6. the main path at the bench DMO scale (2048 halos, 9.62M particles):
-    a warm pass, then TIMED_PASSES timed passes, each with every launch
-    counter set to 0 just before it and read just after, then a checked
-    pass that holds every K1 and K2 call against its plain version at the
-    shapes the path gives it;
+ 5. the engine on the GPU against the engine on the CPU, with the full
+    DMO production spec list and catalogue EncloseRadius, on a 64-halo
+    mock with satellites, understated EncloseRadius (the truncation
+    cross-check sends halos round the retry ladder), aperture copies
+    and both the narrow and the wide pass;
+ 6. the main path: bench.py::bench_dmo's run (2048 halos, 9.62M
+    particles, the full spec list of 38 calculations and 508 keys, with
+    EncloseRadius): a warm pass, then TIMED_PASSES timed passes, each
+    with every launch counter set to 0 just before it and read just
+    after, then a checked pass that holds every K1 and K2 call against
+    its plain version at the shapes the path gives it;
  7. the giant-halo path: bench.py's giant configuration (6 halos of
-    0.9-1.6M particles) through the same engine and the same passes,
-    where K2 runs in clusters.
-It then prints the kernels' JSON line, the card's nvidia-smi line, and
-last a JSON object with "ok": true.  Without a CUDA device it exits 1
-before printing any result.  Imports torch, numpy and soap_tpu_torch
-only.
+    0.9-1.6M particles) with the engine slice's small spec set (2
+    calculations, 12 keys; the full list at this size would not fit the
+    run's time limit) through the same passes, where K2 runs in clusters.
+It then prints the kernels' JSON line (each kernel's time beside its
+plain version's, the least time the card could take for the same work,
+and the library call's), the card's nvidia-smi line, and last a JSON
+object with "ok": true.  Without a CUDA device it exits 1 before
+printing any result.  Imports torch, numpy and soap_tpu_torch only.
 """
 
 import json
@@ -47,7 +57,7 @@ from soap_tpu_torch.ops import range_gather as rg
 from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
 from soap_tpu_torch.pipeline.engine import HaloEngine
-from soap_tpu_torch.pipeline.specs import slice_specs
+from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import build_mock_universe
 
@@ -63,8 +73,25 @@ GIANT = dict(
     n_halos=6, n_field=200_000, boxsize=170.0, seed=4242,
     mass_range=(9.0e4, 1.6e5),
 )
-#: K2 cells: name, B, K
-K2_CELLS = (("main", 256, 32768), ("middle", 64, 131072), ("giant", 1, 1 << 20))
+#: the K1 cell: store rows N, columns F, halos B, capacity, S, ranges
+K1_CELL = (10_500_000, 16, 1024, 8192, 64, 32)
+#: K2 cells: name, B, K, C, L.  L = 8: an SO family's 8 members x 4
+#: configs, folded into the config axis (C = 32, B halos) or, as the
+#: engine runs it, laid on the halo axis (C = 4, 8 x B halos); the two
+#: cells hold the same clouds
+K2_CELLS = (
+    ("main", 256, 32768, 2, 1), ("family", 256, 32768, 32, 1),
+    ("family-lanes", 256, 32768, 4, 8),
+    ("middle", 64, 131072, 2, 1), ("giant", 1, 1 << 20, 2, 1),
+)
+#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+#: HBM bytes/s and float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+#: K2's operations per selected row, config and iteration: the
+#: ellipsoid's quadratic form (14) and test (1), the six weighted second
+#: moments (12 products) and the seven sums
+K2_FLOPS_PER_ROW = 34
 
 
 def say(phase, msg):
@@ -94,6 +121,39 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def bound_ms(n_bytes, n_ops):
+    """(least time in ms, what bounds it): the larger of the bytes over
+    the card's memory rate and the operations over its f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(packed, table, S, capacity):
+    """K1's bound: each output row written once, each distinct source
+    row this table reaches read once, the table read once."""
+    N, F = packed.shape
+    off = torch.arange(S, device=table.device)
+    src = torch.clamp(table.to(torch.int64)[..., None] + off, 0, N - 1)
+    n_src = int(torch.unique(src).numel())
+    B = table.shape[0]
+    return bound_ms((B * capacity + n_src) * F * 4 + table.numel() * 4, 0)
+
+
+def k2_bound(args):
+    """K2's bound for these inputs: each halo's rows up to its last
+    selected row read once (positions, weight, mask words), the tensors
+    written once; K2_FLOPS_PER_ROW for every selected row of every
+    iteration each config runs (counted by the plain version)."""
+    pos3, _, mw, R, _, _, occ = args[:7]
+    W = mw.shape[1]
+    _, iters = il.inertia_loop_plain(*args, count_iterations=True)
+    rows = occ.amax(1).to(torch.float64).sum().item()
+    n_bytes = rows * (12 + 4 + 4 * W) + R.numel() * (6 * 4 + 5 * 4)
+    n_ops = K2_FLOPS_PER_ROW * (iters.to(torch.float64) * occ).sum().item()
+    return bound_ms(n_bytes, n_ops)
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -110,7 +170,7 @@ def phase_build():
 
 def phase_k1(dev):
     rng = np.random.default_rng(1)
-    N, F, B, cap, S, n_ranges = 10_500_000, 16, 1024, 8192, 64, 32
+    N, F, B, cap, S, n_ranges = K1_CELL
     packed = torch.from_numpy(rng.random((N, F), dtype=np.float32)).to(dev)
     counts = rng.integers(0, 160, (B, n_ranges)).astype(np.int32)
     starts = np.sort(rng.integers(0, N - 200, (B, n_ranges)), 1).astype(np.int32)
@@ -124,18 +184,31 @@ def phase_k1(dev):
     if not torch.equal(got, ref):
         raise AssertionError("K1 differs from its plain version")
     err = (got - ref).abs().max().item()
-    del got, ref
+    # the library call: one index_select on the precomputed row index
+    idx = torch.clamp(
+        table.to(torch.int64)[..., None] + torch.arange(S, device=dev), 0, N - 1
+    ).reshape(-1)
+    lib = torch.index_select(packed, 0, idx).view(B, cap, F)
+    if not torch.equal(lib, got):
+        raise AssertionError("index_select differs from K1")
+    del got, ref, lib
     ms = time_ms(lambda: rg.range_gather_blocks(packed, table, S, cap))
     plain_ms = time_ms(lambda: rg.range_gather_blocks_plain(packed, table, S, cap))
+    library_ms = time_ms(lambda: torch.index_select(packed, 0, idx))
+    bms, by = k1_bound(packed, table, S, cap)
     gbs = 2 * B * cap * F * 4 / (ms * 1e-3) / 1e9
     say("K1", f"B={B} capacity={cap} F={F} store={N}x{F}: torch.equal ok "
         f"(max abs err {err:.3e}); kernel {ms:.4f} ms ({gbs:.0f} GB/s moved), "
-        f"plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
 
 
-def _cloud(rng, B, K):
-    """Radius-sorted triaxial clouds, selections and sphere radii."""
+def _cloud(rng, B, K, C):
+    """Radius-sorted triaxial clouds, selections, sphere radii and
+    reduced flags.  C = 2: the bound spec's two configs; C = 32: an SO
+    family's, 8 sphere radii x (plain, reduced) x 2 species, member-major."""
     pos = (rng.normal(size=(B, K, 3)) * [1.5, 1.0, 0.7]).astype(np.float32)
     r = np.linalg.norm(pos, axis=2)
     order = np.argsort(r, axis=1)
@@ -143,10 +216,14 @@ def _cloud(rng, B, K):
     r = np.take_along_axis(r, order, 1)
     w = rng.lognormal(0.0, 0.3, (B, K)).astype(np.float32)
     sel = rng.random((B, K)) < 0.9
-    masks = np.stack([sel, sel], 1)
+    masks = np.stack([sel] * C, 1)
     rmed = np.median(r, axis=1).astype(np.float32)
-    R = np.stack([1.5 * rmed, 1.2 * rmed], 1)
-    return w, pos, masks, R
+    if C == 2:
+        scale = np.array([1.5, 1.2], np.float32)
+    else:
+        scale = np.repeat(np.linspace(0.4, 1.6, C // 4), 4).astype(np.float32)
+    R = rmed[:, None] * scale[None, :]
+    return w, pos, masks, R, [c % 2 == 1 for c in range(C)]
 
 
 def k2_err(what, got, ref):
@@ -166,11 +243,19 @@ def k2_err(what, got, ref):
 
 
 def phase_k2(dev):
-    rng = np.random.default_rng(2)
     cells = {}
-    for name, B, K in K2_CELLS:
-        w, pos, masks, R = (torch.from_numpy(x).to(dev) for x in _cloud(rng, B, K))
-        args, enough = pack_inertia_inputs(w, pos, masks, R, [False, True], [True, True])
+    for name, B, K, C, L in K2_CELLS:
+        # one seed per cloud shape: the family cells share their clouds
+        rng = np.random.default_rng([2, B, K, C * L])
+        *arrays, reduced = _cloud(rng, B, K, C * L)
+        w, pos, masks, R = (torch.from_numpy(x).to(dev) for x in arrays)
+        if L > 1:  # member m of halo b becomes halo m * B + b
+            w, pos = w.repeat(L, 1), pos.repeat(L, 1, 1)
+            masks = masks.view(B, L, C, K).transpose(0, 1).reshape(L * B, C, K)
+            R = R.view(B, L, C).transpose(0, 1).reshape(L * B, C)
+            reduced = reduced[:C]
+            B = L * B
+        args, enough = pack_inertia_inputs(w, pos, masks, R, reduced, [True] * C)
 
         def kernel():
             return il.inertia_loop(*args, rows_radius_sorted=True)
@@ -185,20 +270,24 @@ def phase_k2(dev):
             raise AssertionError(f"K2 {name}: two launches differ")
         err = k2_err(name, got, ref)
         ms = time_ms(kernel)
-        plain_ms = time_ms(lambda: il.inertia_loop_plain(*args))
-        cells[name] = dict(cell=f"B={B} K={K} C=2", cluster_size=G,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        say("K2", f"{name} B={B} K={K} C=2 G={G}: within rtol {K2_RTOL}, two launches "
-            f"torch.equal (max abs err {err:.3e}, found "
+        plain_ms = time_ms(lambda: il.inertia_loop_plain(*args), reps=3)
+        bms, by = k2_bound(args)
+        cells[name] = dict(cell=f"B={B} K={K} C={C}", cluster_size=G,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=None)
+        say("K2", f"{name} B={B} K={K} C={C} G={G}: within rtol {K2_RTOL}, two "
+            f"launches torch.equal (max abs err {err:.3e}, found "
             f"{int(enough.sum())}/{enough.numel()}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del w, pos, masks, R, args, got, again, ref
+        torch.cuda.empty_cache()
     return cells
 
 
 def _bench_inputs(uni, device):
-    """Context, staged chunk and process() arguments for a mock DMO
-    universe, as the bench DMO configuration builds them."""
+    """Context, staged chunk, process() arguments (with the catalogue's
+    EncloseRadius) and the full spec list for a mock DMO universe, as
+    bench.py::bench_dmo builds them."""
     groupnr = np.full(len(uni.ids), -1, dtype=np.int64)
     id_to_row = np.empty(int(uni.ids.max()) + 1, dtype=np.int64)
     id_to_row[uni.ids] = np.arange(len(uni.ids))
@@ -222,28 +311,38 @@ def _bench_inputs(uni, device):
         mean_density=rho_crit0 * uni.omega_m / uni.a**3,
         softening=(0.01,), ptypes=("PartType1",), capacities=(0,), dmo=True,
     )
-    H = uni.n_halos
+    H = len(uni.halo_renclose)
     args = dict(
         centres=uni.halo_pos,
         search_radius_phys=uni.halo_renclose * uni.a * 1.01,
         index=np.arange(H, dtype=np.int64),
         is_central=np.ones(H, dtype=bool),
         fof_id=np.arange(1, H + 1, dtype=np.int64),
+        enclose_radius_phys=uni.halo_renclose * uni.a,
     )
-    return ctx, chunk, args
+    x = uni.omega_m / E2 - 1.0
+    specs = build_specs(None, True, 18.0 * np.pi**2 + 82.0 * x - 39.0 * x * x)
+    return ctx, chunk, args, specs
+
+
+#: keys compared at rtol 1e-5 and exactly, as tests/test_torch_engine_full.py
+TIGHT = ("r", "Mtot", "Mdm", "HalfMassRadiusTot", "HalfMassRadiusDM")
+COUNTS = ("Ndm",)
 
 
 def _compare(ref, got):
-    """The CPU slice test's tolerances: counts equal; r, Mtot and
-    HalfMassRadiusTot within rtol 1e-5; the rest within rtol 1e-3 and
-    atol 1e-4 max|ref| per key."""
+    """The CPU full-list test's tolerances: counts equal; r, masses and
+    half-mass radii within rtol 1e-5; the rest within rtol 1e-3 and atol
+    1e-4 max|ref| per key."""
     for group in ref:
         for key in ref[group]:
             a = np.asarray(ref[group][key], np.float64)
             b = np.asarray(got[group][key], np.float64)
-            if key == "Ndm":
+            if a.shape != b.shape or not np.isfinite(b).all():
+                ok = False
+            elif key in COUNTS:
                 ok = np.array_equal(a, b)
-            elif key in ("r", "Mtot", "HalfMassRadiusTot"):
+            elif key in TIGHT:
                 ok = np.allclose(b, a, rtol=1e-5, atol=0.0)
             else:
                 scale = np.abs(a).max() if a.size else 1.0
@@ -252,35 +351,54 @@ def _compare(ref, got):
                 raise AssertionError(f"{group}/{key}: GPU engine differs from CPU")
 
 
+def _counters(stats):
+    return dict(bucket_calls=stats.n_bucket_calls, retries=stats.n_retries,
+                copied_specs=stats.n_copied_specs,
+                truncated_tiles=stats.n_truncated_tiles,
+                by_pass=dict(sorted(stats.bucket_calls_by_pass.items())))
+
+
+def engine_case(where):
+    """Phase 5's run on one device: a 64-halo mock with two satellite
+    subhalos of its biggest halo (they and every fourth halo satellites),
+    coarse particles over a wide mass range (some halos past 1 Mpc),
+    every third input radius shrunk x0.002 (floored at the pass's widest
+    aperture) and every catalogue EncloseRadius understated x0.3, so the
+    truncation misses bound rows of the biggest halos and the bound-count
+    cross-check sends them round the x1.5 retry ladder."""
+    uni = build_mock_universe(
+        n_halos=64, n_field=20000, boxsize=40.0, seed=ENGINE_SEED,
+        particle_mass=2.0, mass_range=(300.0, 30000.0), n_satellites=2,
+    )
+    ctx, chunk, args, specs = _bench_inputs(uni, torch.device(where))
+    H = len(uni.halo_renclose)
+    args["is_central"] = (np.arange(H) % 4 != 0) & (np.asarray(uni.halo_rank) == 0)
+    args["search_radius_phys"] = args["search_radius_phys"] * np.where(
+        np.arange(H) % 3 == 0, 0.002, 1.0
+    )
+    args["enclose_radius_phys"] = args["enclose_radius_phys"] * 0.3
+    rg.launches = il.launches = 0
+    eng = HaloEngine(ctx, chunk, specs, where)
+    res = eng.process(**args)
+    return uni, res, eng.stats, rg.launches, il.launches
+
+
 def phase_engine(dev):
-    """Every fourth halo a satellite, and every third halo's search radius
-    shrunk so far that it must go round the x1.5 retry ladder, as in the
-    CPU slice test."""
-    uni = build_mock_universe(n_halos=64, n_field=20000, boxsize=40.0, seed=ENGINE_SEED)
-    H = uni.n_halos
-    shrink = np.where(np.arange(H) % 3 == 0, 0.002, 1.0)
-    runs = {}
-    for where in ("cpu", dev):
-        ctx, chunk, args = _bench_inputs(uni, torch.device(where))
-        args["is_central"] = np.arange(H) % 4 != 0
-        args["search_radius_phys"] = args["search_radius_phys"] * shrink
-        rg.launches = il.launches = 0
-        eng = HaloEngine(ctx, chunk, slice_specs(), where)
-        runs[str(where)] = (eng.process(**args), eng.stats, rg.launches, il.launches)
-    (ref, st_c, _, _), (got, st_g, n1, n2) = runs["cpu"], runs[str(dev)]
+    uni, ref, st_c, _, _ = engine_case("cpu")
+    _, got, st_g, n1, n2 = engine_case(dev)
     _compare(ref, got)
-    if st_g.n_retries == 0:
-        raise AssertionError("the retry ladder did not run on the GPU")
-    if (st_c.n_bucket_calls, st_c.n_retries) != (st_g.n_bucket_calls, st_g.n_retries):
-        raise AssertionError(
-            f"bucket calls / retries differ: CPU {st_c.n_bucket_calls}/"
-            f"{st_c.n_retries}, GPU {st_g.n_bucket_calls}/{st_g.n_retries}"
-        )
+    c_cpu, c_gpu = _counters(st_c), _counters(st_g)
+    if c_cpu != c_gpu:
+        raise AssertionError(f"engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
+    if min(c_gpu["retries"], c_gpu["copied_specs"], c_gpu["truncated_tiles"]) == 0 \
+            or set(c_gpu["by_pass"]) != {"narrow", "wide"}:
+        raise AssertionError(f"a mechanism did not run on the GPU: {c_gpu}")
     if n1 == 0 or n2 == 0:
         raise AssertionError(f"GPU engine bypassed a kernel: K1 {n1}, K2 {n2} launches")
-    say("engine", f"{H} halos, {len(uni.pos)} particles: GPU == CPU within "
-        f"tolerance; {st_g.n_bucket_calls} bucket calls, {st_g.n_retries} "
-        f"retries; launches K1 {n1}, K2 {n2}")
+    n_keys = sum(len(d) for d in got.values())
+    say("engine", f"{len(uni.halo_renclose)} halos, {len(uni.pos)} particles, "
+        f"{len(got)} groups, {n_keys} keys: GPU == CPU within tolerance; "
+        f"counters equal {c_gpu}; launches K1 {n1}, K2 {n2}")
 
 
 class PathCheck:
@@ -332,19 +450,26 @@ class PathCheck:
         rg.range_gather_blocks, inertia_ops.inertia_loop = self._range_gather, self._inertia_loop
 
 
-def drive_path(tag, uni, dev):
+def drive_path(tag, uni, dev, full):
     """A universe through the engine: a warm pass, then TIMED_PASSES timed
     passes, each with every launch counter set to 0 just before it and
-    read just after, then one checked pass (PathCheck).  Returns the last
-    timed pass's results and counts, the rates of all, the peak device
-    memory over the timed passes and the checks."""
-    ctx, chunk, args = _bench_inputs(uni, dev)
-    HaloEngine(ctx, chunk, slice_specs(), dev).process(**args)  # warm pass
+    read just after, then one checked pass (PathCheck).  ``full``: the
+    full production spec list with the catalogue's EncloseRadius, as
+    bench_dmo runs it; else the engine slice's small spec set without it.
+    Returns the last timed pass's results and counts, and the checks."""
+    ctx, chunk, args, specs = _bench_inputs(uni, dev)
+    if not full:
+        specs = slice_specs()
+        del args["enclose_radius_phys"]
+    n_keys = sum(len(s.keys) for s in specs)
+    say(tag, f"spec list: {len(specs)} calculations, {n_keys} keys"
+        + ("" if full else " (the engine slice's)"))
+    HaloEngine(ctx, chunk, specs, dev).process(**args)  # warm pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rates = []
     for _ in range(TIMED_PASSES):
-        engine = HaloEngine(ctx, chunk, slice_specs(), dev)
+        engine = HaloEngine(ctx, chunk, specs, dev)
         torch.cuda.synchronize()
         rg.launches = il.launches = 0
         il.cluster_launches.clear()
@@ -360,6 +485,8 @@ def drive_path(tag, uni, dev):
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     H = uni.n_halos
+    if sum(len(d) for d in res.values()) != n_keys:
+        raise AssertionError(f"{tag}: {sum(len(d) for d in res.values())} keys, not {n_keys}")
     for group, d in res.items():
         for key, arr in d.items():
             if arr.shape[0] != H or not np.isfinite(np.asarray(arr, np.float64)).all():
@@ -368,16 +495,20 @@ def drive_path(tag, uni, dev):
         raise AssertionError(f"{tag} SO/200_crit/r not positive for every central")
 
     with PathCheck() as check:
-        HaloEngine(ctx, chunk, slice_specs(), dev).process(**args)
+        HaloEngine(ctx, chunk, specs, dev).process(**args)
         torch.cuda.synchronize()
     if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
         raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
                              f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    by_cg = {}
+    for shape, n in check.k2["shapes"].items():
+        cg = " ".join(shape.split()[2:])
+        by_cg[cg] = by_cg.get(cg, 0) + n
     say(tag, f"{H} halos: halos/s over {TIMED_PASSES} timed passes median "
         f"{np.median(rates):.2f} (min {min(rates):.2f}, max {max(rates):.2f}; "
-        f"{', '.join(f'{r:.2f}' for r in rates)}); {engine.stats.n_bucket_calls} "
-        f"bucket calls, {engine.stats.n_retries} retries; peak device memory "
-        f"{peak:.2f} GiB; launches {launches}, K2 launches by G {by_g}")
+        f"{', '.join(f'{r:.2f}' for r in rates)}); {_counters(engine.stats)}; "
+        f"peak device memory {peak:.2f} GiB; launches {launches}, K2 launches "
+        f"by G {by_g}, by C and G {dict(sorted(by_cg.items()))}")
     say(tag, f"checked pass, every call against its plain version: K1 "
         f"bit-equal at {check.k1['shapes']}; K2 within rtol {K2_RTOL} at "
         f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e})")
@@ -391,9 +522,10 @@ def phase_main(dev):
     t1 = time.perf_counter()
     say("main", f"universe {len(uni.pos)} particles, {uni.n_halos} halos in "
         f"{t1 - t0:.1f} s")
-    run = drive_path("main", uni, dev)
+    run = drive_path("main", uni, dev, full=True)
     if not (run["res"]["BoundSubhalo"]["Mtot"] > 0).all():
         raise AssertionError("BoundSubhalo/Mtot not positive for every halo")
+    run["uni"] = uni
     return run
 
 
@@ -403,7 +535,7 @@ def phase_giant(dev):
     n_big = max(len(ids) for ids in uni.bound_ids)
     say("giant", f"universe {len(uni.pos)} particles, {uni.n_halos} halos, biggest "
         f"{n_big} particles; built in {time.perf_counter() - t0:.1f} s")
-    run = drive_path("giant", uni, dev)
+    run = drive_path("giant", uni, dev, full=False)
     ndm = run["res"]["BoundSubhalo"]["Ndm"]
     want = np.array([len(ids) for ids in uni.bound_ids])
     if not np.array_equal(ndm, want):
@@ -411,6 +543,37 @@ def phase_giant(dev):
     if not any(g > 1 for g in run["by_g"]):
         raise AssertionError(f"giant path ran K2 in no cluster: by G {run['by_g']}")
     return run
+
+
+def phase_profile(dev, uni):
+    """torch.profiler over one main-path pass: device time summed over
+    kernel events only (each kernel once), beside unprofiled passes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx, chunk, args, specs = _bench_inputs(uni, dev)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        HaloEngine(ctx, chunk, specs, dev).process(**args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        HaloEngine(ctx, chunk, specs, dev).process(**args)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            d = by_name.setdefault(e.name, [0.0, 0])
+            d[0] += e.time_range.elapsed_us() / 1e3
+            d[1] += 1
+    total = sum(v[0] for v in by_name.values())
+    calls = sum(v[1] for v in by_name.values())
+    say("profile", f"main path: {total:.2f} ms device time in {calls} kernels; "
+        f"unprofiled passes {', '.join(f'{w:.4f}' for w in walls)} s; busy share "
+        f"{total / 1e3 / float(np.median(walls)):.3f}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        say("profile", f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:6d} calls  {name[:90]}")
 
 
 def main():
@@ -430,10 +593,13 @@ def main():
     phase_engine(dev)
     main_run = phase_main(dev)
     giant_run = phase_giant(dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(dev, main_run["uni"])
 
     # launches: the main path's count; giant_path_launches: the giant
     # path's; path_checks: each path's checked pass (calls, the shapes it
-    # gave the kernel, max abs err against the plain version).  The giant
+    # gave the kernel, max abs err against the plain version); ms,
+    # plain_ms, bound_ms and library_ms: the phase-3/4 cell's.  The giant
     # K2 cell stands for the streaming TPU kernel.
     def path(name):
         return dict(launches=main_run["launches"][name],

@@ -1,0 +1,46 @@
+"""The property table's keys, output names and DMO flags.
+
+A trimmed copy of ``soap_tpu/core/property_table.json`` (the reference's
+``full_property_list``) as package data: per property key only its
+output dataset name and whether a dark-matter-only run computes it, the
+two fields ``build_specs`` and ``implemented_keys_for`` read.
+``tests/test_torch_host_mirror.py`` holds the copy to the original.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from functools import lru_cache
+from importlib import resources
+from typing import Dict
+
+
+@dataclass(frozen=True)
+class PropertyDef:
+    key: str  # internal name used by the slice classes
+    name: str  # dataset name in the output file
+    dmo: bool  # computed in dark-matter-only runs?
+
+
+class PropertyTable:
+    """Dictionary-like access to the trimmed property list."""
+
+    def __init__(self, data: dict):
+        self._props: Dict[str, PropertyDef] = {
+            key: PropertyDef(key, e["name"], bool(e["dmo_property"]))
+            for key, e in data["properties"].items()
+        }
+
+    def __getitem__(self, key: str) -> PropertyDef:
+        return self._props[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._props
+
+
+@lru_cache(maxsize=1)
+def full_property_table() -> PropertyTable:
+    path = resources.files("soap_tpu_torch.core").joinpath("property_table.json")
+    with path.open() as f:
+        return PropertyTable(json.load(f))

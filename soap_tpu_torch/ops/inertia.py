@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from soap_tpu_torch.ops.inertia_loop import inertia_loop
+from soap_tpu_torch.ops.inertia_loop import inertia_loop, inertia_loop_plain
 
 TOL = 1.0e-4
 MIN_PARTICLES = 20
@@ -166,21 +166,29 @@ def inertia_tensor_multi(
     search_radius: Optional[torch.Tensor] = None,  # (B,) (None: no check)
     check_search: Optional[Sequence[bool]] = None,  # (C,)
     max_iterations: int = 20,
+    single_pass: bool = False,  # every config non-iterative
     rows_radius_sorted: bool = False,  # rows ascending in |pos|
 ) -> InertiaResult:
     """Every (halo, config) 3D inertia tensor through one inertia loop.
 
     Per-config semantics are those of ``soap_tpu.ops.inertia.
-    inertia_tensor_multi`` (its iterative path).  The loop sweeps only
-    up to each config's last selected row, so radius-sorted rows, whose
-    selections are dense in a prefix, sweep least; with
-    ``rows_radius_sorted`` the kernel also stops at the ellipsoid's
-    extent, as the JAX kernel does.
+    inertia_tensor_multi``.  The loop sweeps only up to each config's
+    last selected row, so radius-sorted rows, whose selections are dense
+    in a prefix, sweep least; with ``rows_radius_sorted`` the kernel
+    also stops at the ellipsoid's extent, as the JAX kernel does.
+    ``single_pass`` (all configs non-iterative) gives each config's
+    sphere moment tensor: the loop's first iteration, in plain PyTorch
+    on any device, as the JAX package computes it without its kernel.
     """
     args, enough = pack_inertia_inputs(
         weights, pos, masks, sphere_radius, reduced, iterative, max_iterations
     )
-    out = inertia_loop(*args, rows_radius_sorted=rows_radius_sorted)
+    if single_pass:
+        if any(iterative):
+            raise ValueError("single_pass takes non-iterative configs only")
+        out = inertia_loop_plain(*args)
+    else:
+        out = inertia_loop(*args, rows_radius_sorted=rows_radius_sorted)
     # loop order [xx, xy, xz, yy, yz, zz] -> result order [xx, yy, zz, xy, xz, yz]
     flat = out[..., [0, 3, 5, 1, 2, 4]]
     flat = torch.where(enough[..., None], flat, 0.0)

@@ -66,64 +66,70 @@ def inertia_loop_plain(
     occ: torch.Tensor,
     done0: torch.Tensor,
     max_iterations: int,
-) -> torch.Tensor:
+    *,
+    count_iterations: bool = False,
+):
     """Plain PyTorch version of K2 (the port of the jnp while loop).
+    With ``count_iterations`` it returns (tensors, (B, C) i32 iterations
+    each config ran), the work a bound on the kernel's time counts.
 
-    ``occ`` only bounds where the kernel stops reading: rows past it
-    carry no selected bit, so the plain version needs no prefix.  Nor
-    does it need the kernel's extent stop: rows past the ellipsoid's
-    extent are never inside it, so it sweeps every row."""
+    Each iteration computes only the (halo, config) pairs still running
+    (a finished config's state no longer changes), over the rows before
+    the last ``occ``: rows past a config's ``occ`` carry no selected
+    bit.  It needs no extent stop either: rows past the ellipsoid's
+    extent are never inside it, so it sweeps every row of the prefix."""
     from soap_tpu_torch.ops.inertia import TOL, sym_eigh_3x3
 
     B, _, K = pos3.shape
     C = R.shape[1]
     dev = pos3.device
-    x, y, z = (pos3[:, i, None, :] for i in range(3))  # (B, 1, K)
-    cfg = torch.arange(C, device=dev)
-    words = mw.index_select(1, cfg // 32)  # (B, C, K)
-    masks = ((words >> (cfg % 32)[None, :, None]) & 1).bool()
-    r2 = x * x + y * y + z * z
-    inv_r2 = 1.0 / torch.where(torch.abs(r2) <= 1e-8, 1.0, r2)
-    w_in = w[:, None, :]
-    w_inv = w_in * inv_r2
-    red = reduced.bool()[..., None]
+    kmax = max(int(occ.max()), 1) if occ.numel() else 1
+    pos3, w, mw = pos3[..., :kmax], w[:, :kmax], mw[..., :kmax]
+    r2 = pos3[:, 0] * pos3[:, 0] + pos3[:, 1] * pos3[:, 1] + pos3[:, 2] * pos3[:, 2]
+    w_inv = w * (1.0 / torch.where(torch.abs(r2) <= 1e-8, 1.0, r2))
 
     val = torch.ones((B, C, 3), dtype=torch.float32, device=dev)
-    vec = torch.eye(3, dtype=torch.float32, device=dev).expand(B, C, 3, 3)
+    vec = torch.eye(3, dtype=torch.float32, device=dev).repeat(B, C, 1, 1)
     ten = torch.zeros((B, C, 6), dtype=torch.float32, device=dev)
     old_q = torch.full((B, C), 1000.0, dtype=torch.float32, device=dev)
-    done = done0.bool()
+    done = done0 != 0
+    iterations = torch.zeros((B, C), dtype=torch.int32, device=dev)
     for i in range(max_iterations):
-        if bool(done.all()):
+        b, c = (~done).nonzero(as_tuple=True)  # the pairs still running
+        if not len(b):
             break
-        v0, v1, v2 = val[..., 0], val[..., 1], val[..., 2]
+        x, y, z = pos3[b, 0], pos3[b, 1], pos3[b, 2]  # (n, K)
+        mask = ((mw[b, c // 32] >> (c % 32)[:, None]) & 1).bool()
+        v0, v1, v2 = val[b, c].unbind(-1)
+        vc = vec[b, c]  # (n, 3, 3)
         q_now = torch.sqrt(v1 / v2)
-        converged = torch.abs((old_q - q_now) / torch.clamp(q_now, min=1e-37)) < TOL
+        converged = torch.abs((old_q[b, c] - q_now) / torch.clamp(q_now, min=1e-37)) < TOL
         s = torch.sqrt(v0 / v2)
         p = torch.sqrt(v0 / v1)
-        axis = R[..., None] * torch.stack(
+        axis = R[b, c][:, None] * torch.stack(
             [_cbrt(s * p), _cbrt(q_now / p), 1.0 / _cbrt(q_now * s)], -1
         )
-        ia = 1.0 / (axis * axis)  # (B, C, 3)
+        ia = 1.0 / (axis * axis)  # (n, 3)
 
         def qf(i_, j_):
             return (
-                vec[..., i_, 0] * vec[..., j_, 0] * ia[..., 0]
-                + vec[..., i_, 1] * vec[..., j_, 1] * ia[..., 1]
-                + vec[..., i_, 2] * vec[..., j_, 2] * ia[..., 2]
-            )[..., None]
+                vc[:, i_, 0] * vc[:, j_, 0] * ia[:, 0]
+                + vc[:, i_, 1] * vc[:, j_, 1] * ia[:, 1]
+                + vc[:, i_, 2] * vc[:, j_, 2] * ia[:, 2]
+            )[:, None]
 
         q00, q11, q22 = qf(0, 0), qf(1, 1), qf(2, 2)
         q01, q02, q12 = 2.0 * qf(0, 1), 2.0 * qf(0, 2), 2.0 * qf(1, 2)
         rr = x * (q00 * x + q01 * y + q02 * z) + y * (q11 * y + q12 * z) + q22 * z * z
-        inside = masks & (rr <= 1.0)
+        inside = mask & (rr <= 1.0)
+        w_in = w[b]
         wsel = torch.where(inside, w_in, 0.0)
-        wi = torch.where(inside, torch.where(red, w_inv, w_in), 0.0)
+        wi = torch.where(inside, torch.where(reduced[b, c].bool()[:, None], w_inv[b], w_in), 0.0)
         # f32 products, f64 sums: the kernel's arithmetic, so both round
         # every f32 quantity alike (see csrc/inertia_loop.cu)
         sums = [
-            (wi * a * b).to(torch.float64).sum(-1)
-            for a, b in ((x, x), (x, y), (x, z), (y, y), (y, z), (z, z))
+            (wi * a * b_).to(torch.float64).sum(-1)
+            for a, b_ in ((x, x), (x, y), (x, z), (y, y), (y, z), (z, z))
         ]
         inv = 1.0 / torch.clamp(wsel.to(torch.float64).sum(-1), min=1e-37)
         t_new = torch.stack([s_ * inv for s_ in sums], -1).to(torch.float32)
@@ -139,16 +145,16 @@ def inertia_loop_plain(
         val_n, vec_n = sym_eigh_3x3(full)
         val_n = torch.abs(val_n)
         degenerate = q_now == 0.0
-        t_new = torch.where(degenerate[..., None], 0.0, t_new)
-        stop = converged | degenerate | (i + 1 >= limit)
-        active = ~done
-        upd = active & ~(converged | degenerate)
-        ten = torch.where((active & ~converged)[..., None], t_new, ten)
-        val = torch.where(upd[..., None], val_n, val)
-        vec = torch.where(upd[..., None, None], vec_n, vec)
-        old_q = torch.where(upd, q_now, old_q)
-        done = done | (active & stop)
-    return ten
+        t_new = torch.where(degenerate[:, None], 0.0, t_new)
+        stop = converged | degenerate | (i + 1 >= limit[b, c])
+        upd = ~(converged | degenerate)
+        ten[b, c] = torch.where(~converged[:, None], t_new, ten[b, c])
+        val[b, c] = torch.where(upd[:, None], val_n, val[b, c])
+        vec[b, c] = torch.where(upd[:, None, None], vec_n, vc)
+        old_q[b, c] = torch.where(upd, q_now, old_q[b, c])
+        done[b, c] = stop
+        iterations[b, c] += 1
+    return (ten, iterations) if count_iterations else ten
 
 
 #: launches of the K2 CUDA kernel (incremented only where it launches)

@@ -49,3 +49,8 @@ def half_weight_radius_sorted(
     result = torch.where(flat_bin, 0.5 * (prev_r + rmax), interp)
     ok = (total_weight > 0) & any_reached
     return torch.where(ok, result, 0.0)
+
+
+def enclose_radius(radius: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Radius of the furthest selected particle (B,); 0 when none."""
+    return torch.where(mask, radius, 0.0).amax(1)

@@ -43,3 +43,21 @@ def centre_of_mass_velocity(
     mtot = m.sum(1)
     v = (m[..., None] * vel).sum(1) / torch.clamp(mtot, min=1e-37)[:, None]
     return torch.where(mtot[:, None] > 0, v, 0.0)
+
+
+def velocity_dispersion_matrix(
+    mass: torch.Tensor,  # (B, K)
+    vel: torch.Tensor,  # (B, K, 3)
+    vcom: torch.Tensor,  # (B, 3)
+    mask: torch.Tensor,  # (B, K)
+) -> torch.Tensor:
+    """Mass-fraction-weighted velocity dispersion matrix (B, 6), in the
+    reference's order XX, YY, ZZ, XY, XZ, YZ."""
+    m = torch.where(mask, mass, 0.0)
+    frac = m / torch.clamp(m.sum(1), min=1e-37)[:, None]
+    dv = torch.where(mask[..., None], vel - vcom[:, None, :], 0.0)
+    x, y, z = dv[..., 0], dv[..., 1], dv[..., 2]
+    return torch.stack(
+        [(frac * a * b).sum(1) for a, b in ((x, x), (y, y), (z, z), (x, y), (x, z), (y, z))],
+        1,
+    )

@@ -11,6 +11,9 @@ Ported from ``soap_tpu/ops/so_radius.py`` (reference
  - a profile that starts below the threshold is extrapolated linearly
    from zero;
  - no crossing inside the searched region flags ``needs_bigger``.
+The threshold is any physical density (crit, mean or BN98 multiples);
+``enclosed_mass_sorted`` gives the mass at a fixed radius instead (the
+SO of a radius multiple, e.g. 5 x R_500crit).
 All functions take a leading halo axis: (B, K) profiles, (B,) results.
 """
 
@@ -179,3 +182,4 @@ def enclosed_mass_sorted(
         ~has_outside, total, torch.where(i <= nskip, M2, interp)
     )
     return torch.where(any_usable, mass_out, 0.0)
+

@@ -382,9 +382,12 @@ def presize_and_count(
     target_density_com: float,
     ptypes: Tuple[str, ...],
     do_presize: bool = True,
+    radius_trunc: Optional[torch.Tensor] = None,  # (H,) comoving
 ):
     """The host's bucketing pre-pass: optional SO gather-radius growth,
-    then exact per-type candidate counts at the chosen radius."""
+    then exact per-type candidate counts at the chosen radius.  With
+    ``radius_trunc``, also the counts at min(radius_trunc, radius): the
+    sorted-prefix bound of the engine's row truncation (else zeros)."""
     if do_presize:
         grown = presize_so_radius(chunk, centre_hi, radius0, target_density_com)
         radius = torch.where(so_eligible, torch.maximum(radius0, grown), radius0)
@@ -393,4 +396,8 @@ def presize_and_count(
     counts = tuple(
         count_candidates(chunk.ptypes[pt], centre_hi, radius) for pt in ptypes
     )
-    return radius, counts
+    if radius_trunc is None:
+        return radius, counts, tuple(torch.zeros_like(c) for c in counts)
+    rt = torch.minimum(radius_trunc, radius)
+    counts_b = tuple(count_candidates(chunk.ptypes[pt], centre_hi, rt) for pt in ptypes)
+    return radius, counts, counts_b

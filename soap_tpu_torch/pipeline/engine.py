@@ -7,14 +7,25 @@ Ported from ``soap_tpu/pipeline/engine.py`` (single chunk, one device):
  2. halos are sorted by candidate count and cut into tiles whose padded
     rows stay within ``TARGET_ROWS``; each tile is one bucket call:
     cell ranges -> run-length range gather (kernel K1) -> one radius
-    sort -> the lazy property DAG (the SO bisection, masked reductions,
-    half-mass radius, and the inertia loop, kernel K2);
+    sort -> the lazy property DAG of every spec (the SO bisection,
+    masked reductions, kinematics, half-mass radii, and the inertia
+    loop, kernel K2, once per spec family);
  3. halos whose candidate buffer overflowed, or whose properties need a
     bigger region, get their radius grown x1.5 and are re-bucketed until
     done or at the 20 Mpc cap.
-Centrals-only specs (SO) run in a separate central phase, so satellite
-buckets carry no SO work.  Not ported yet: sorted-prefix truncation,
-spec families, the aperture copy and the wide/narrow pass split.
+Around that core, as in the JAX engine:
+ - fixed apertures wider than ``WIDE_RADIUS_MPC`` run in a second
+   ("wide") pass, so they do not set the gather capacity of every other
+   key; the wide pass copies from the narrow pass's apertures;
+ - centrals-only specs (SO) run in a central phase of their own;
+ - consecutive specs of one kind (SO densities, aperture radii, one
+   axis's projected radii) form a family: one K2 launch for all of them;
+ - given the catalogue's EncloseRadius, the first round truncates the
+   bound, aperture and projected specs to the radius-sorted row prefix
+   inside max(EncloseRadius, largest aperture), with a bound-count
+   cross-check that retries untruncated where the catalogue lied;
+ - where every halo of a tile lies inside the next-smaller aperture, an
+   aperture's keys are copied from it instead of computed.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,9 +41,11 @@ import torch
 
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.models.halo_slice import (
+    ApertureSlice,
     BoundSubhaloSlice,
     HaloParticles,
     HaloScalars,
+    ProjectedApertureSlice,
     SOSlice,
     compute_properties,
     shared_sort_artifacts,
@@ -59,6 +72,11 @@ TARGET_ROWS = 8 * 1024 * 1024
 MAX_BATCH = 4096
 #: rows per block of the range gather (the JAX layout's S)
 GATHER_S = 64
+#: fixed apertures larger than this (Mpc) run in the wide pass; 0 runs
+#: every spec in one pass
+WIDE_RADIUS_MPC = 0.4
+#: the staged fields a truncated bucket can carry as sort payloads
+_BASE_FIELDS = {"Masses", "Velocities", "GroupNr_bound", "FOFGroupIDs"}
 
 
 @dataclass(frozen=True)
@@ -66,8 +84,7 @@ class HaloTypeSpec:
     """Static description of one halo-type calculation instance: one
     spec per output group.  A copy of ``soap_tpu.pipeline.engine.
     HaloTypeSpec`` (``tests/test_torch_host_mirror.py`` holds the fields
-    and defaults to the original's); the engine runs the ``bound`` and
-    plain ``SO`` kinds."""
+    and defaults to the original's)."""
 
     kind: str  # 'bound' | 'SO' | 'aperture' | 'projected'
     group: str  # output group name, e.g. 'SO/200_crit'
@@ -87,10 +104,10 @@ class HaloTypeSpec:
     # SO specs additionally restrict to centrals
     centrals_only: bool = False
     halo_filter: str = "basic"
-    # aperture-copy optimization
+    # aperture copy: the next-smaller aperture of the same kind
     copy_from: Optional[str] = None
     copy_from_radius_mpc: Optional[float] = None
-    strict_keys: Tuple[str, ...] = ()
+    strict_keys: Tuple[str, ...] = ()  # keys recomputed even when copying
 
     def target_density(self, ctx: HaloContext) -> Optional[float]:
         if self.kind != "SO" or self.so_type in (None, "physical"):
@@ -105,37 +122,165 @@ class HaloTypeSpec:
 
 
 def _check_spec(spec: HaloTypeSpec) -> None:
-    """Raise for a spec this engine does not run yet (keys are checked
-    by ``compute_properties``)."""
-    if spec.kind == "bound":
-        return
-    if (
-        spec.kind == "SO"
-        and spec.so_type in ("crit", "mean", "BN98")
-        and spec.radius_multiple_of is None
-        and spec.core_excision_fraction is None
-    ):
-        return
-    raise NotImplementedError(f"spec {spec.group} ({spec.kind}) is not ported")
+    """Raise for a spec this engine does not run (keys are checked by
+    ``compute_properties``)."""
+    ported = (
+        spec.kind == "bound"
+        or (
+            spec.kind == "SO"
+            and spec.so_type in ("crit", "mean", "BN98")
+            and spec.core_excision_fraction is None
+        )
+        or (
+            spec.kind in ("aperture", "projected")
+            and spec.radius_property is None
+            and spec.aperture_radius_mpc is not None
+        )
+    )
+    if not ported:
+        raise NotImplementedError(f"spec {spec.group} ({spec.kind}) is not ported")
 
 
-def _make_slice(spec: HaloTypeSpec, ctx, parts, scalars):
+def _make_slice(spec: HaloTypeSpec, ctx, parts, scalars, prior):
     if spec.kind == "bound":
         return BoundSubhaloSlice(ctx, parts, scalars)
-    return SOSlice(ctx, parts, scalars, target_density=spec.target_density(ctx))
+    if spec.kind == "SO":
+        if spec.radius_multiple_of is not None:
+            parent_r = prior[spec.radius_multiple_of]["r"]
+            return SOSlice(ctx, parts, scalars,
+                           physical_radius=spec.radius_multiple * parent_r)
+        return SOSlice(ctx, parts, scalars, target_density=spec.target_density(ctx))
+    if spec.kind == "aperture":
+        return ApertureSlice(ctx, parts, scalars, spec.aperture_radius_mpc, spec.inclusive)
+    return ProjectedApertureSlice(ctx, parts, scalars, spec.aperture_radius_mpc, spec.axis)
 
 
-def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...]):
+def _lanes(t: torch.Tensor, L: int) -> torch.Tensor:
+    """``t`` repeated L times along the halo axis (member-major)."""
+    return t if L == 1 else t.repeat((L,) + (1,) * (t.dim() - 1))
+
+
+def _family_slice(members, ctx, parts, scalars):
+    """One slice over a family's L members x B halos: the particles and
+    scalars repeated per member, each member's threshold density or
+    aperture radius on its own B halos."""
+    L, spec0 = len(members), members[0]
+    parts_l = HaloParticles(*(_lanes(x, L) for x in parts))
+    scalars_l = HaloScalars(*(_lanes(x, L) for x in scalars))
+    values = [
+        s.target_density(ctx) if spec0.kind == "SO" else s.aperture_radius_mpc
+        for s in members
+    ]
+    per_halo = torch.tensor(values, dtype=torch.float32, device=scalars.index.device)
+    per_halo = per_halo.repeat_interleave(scalars.index.shape[0])
+    if spec0.kind == "SO":
+        return SOSlice(ctx, parts_l, scalars_l, target_density=per_halo)
+    if spec0.kind == "aperture":
+        return ApertureSlice(ctx, parts_l, scalars_l, per_halo, spec0.inclusive)
+    return ProjectedApertureSlice(ctx, parts_l, scalars_l, per_halo, spec0.axis)
+
+
+def _block_signature(spec: HaloTypeSpec, dens) -> Optional[tuple]:
+    """Consecutive specs with one signature form a family, evaluated as
+    one slice with the members as lanes of the halo axis: one launch of
+    each op, and of the inertia loop, for all of them."""
+    if spec.kind == "SO" and dens is not None and spec.radius_multiple_of is None:
+        return ("SO", spec.keys, spec.core_excision_fraction)
+    if spec.kind == "aperture" and spec.radius_property is None:
+        return ("aperture", spec.keys, spec.inclusive)
+    if spec.kind == "projected" and spec.radius_property is None:
+        return ("projected", spec.keys, spec.axis)
+    return None
+
+
+def _spec_truncatable(spec: HaloTypeSpec) -> bool:
+    """Specs whose rows lie within max(EncloseRadius, fixed aperture
+    radius): BoundSubhalo (bound rows), fixed-radius apertures and
+    projected apertures.  SO (the density crossing needs the whole
+    gathered profile) and radius-property apertures need every row."""
+    if spec.kind == "bound":
+        return True
+    return spec.kind in ("aperture", "projected") and spec.radius_property is None
+
+
+def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[int] = None):
     """Property evaluation over all specs for one bucket: one shared
-    radius sort, then each spec's slice."""
+    radius sort, then each family's slices.
+
+    ``trunc``: sorted-prefix row truncation.  Truncatable specs run on
+    the first ``trunc`` radius-sorted rows (prefix slices of the sort
+    and its payloads) instead of the whole gather capacity; the host
+    sized ``trunc`` from summed-area-table counts at the truncation
+    radius, and a halo with a bound row past the prefix (its catalogue
+    EncloseRadius lied) is flagged to retry untruncated."""
+    blocks: List[Tuple[Optional[tuple], List[HaloTypeSpec]]] = []
+    for spec in specs:
+        sig = _block_signature(spec, spec.target_density(ctx))
+        if sig is not None and blocks and blocks[-1][0] == sig:
+            blocks[-1][1].append(spec)
+        else:
+            blocks.append((sig, [spec]))
+    ctx_b = dataclasses.replace(ctx, capacities=(trunc,)) if trunc is not None else None
 
     def fn(parts: HaloParticles, scalars: HaloScalars):
-        shared = shared_sort_artifacts(parts, scalars)
-        out = {}
-        for spec in specs:
-            s = _make_slice(spec, ctx, parts, scalars)
-            s.__dict__.update(shared)
-            out[spec.group] = compute_properties(s, spec.keys)
+        shared = shared_sort_artifacts(parts, scalars, vel_payload=trunc is not None)
+        parts_b = shared_b = trunc_bad = None
+        if trunc is not None:
+            kb = trunc
+            bound_b = shared["_bound_sorted"][:, :kb]
+            parts_b = HaloParticles(
+                valid=shared["_valid_sorted"][:, :kb],
+                mass=shared["_m_sorted"][:, :kb],
+                pos=shared["_pos_sorted"][:, :kb],
+                vel=shared["_vel_sorted"][:, :kb],
+                # exact for the one consumer (bound_mask, seeded below);
+                # SO needs the full labels and never truncates
+                groupnr=torch.where(bound_b, scalars.index[:, None], -1),
+                fofid=torch.full_like(bound_b, -1, dtype=torch.int64),
+                softening=parts.softening[:, :kb],
+            )
+            shared_b = {
+                "radius": shared["_r_sorted"][:, :kb],
+                "_rsort_order": torch.arange(kb, device=bound_b.device).expand_as(bound_b),
+                "_r_sorted": shared["_r_sorted"][:, :kb],
+                "_m_sorted": parts_b.mass,
+                "_bound_sorted": bound_b,
+                "_pos_sorted": parts_b.pos,
+                "_valid_sorted": parts_b.valid,
+                "bound_mask": bound_b,
+            }
+            trunc_bad = shared["_bound_sorted"].sum(1) > bound_b.sum(1)
+
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        prior: Dict[str, Dict[str, torch.Tensor]] = {}
+        for _, members in blocks:
+            truncated = trunc is not None and _spec_truncatable(members[0])
+            cx, pr, shr = (ctx_b, parts_b, shared_b) if truncated else (ctx, parts, shared)
+            L = len(members)
+            spec0 = members[0]
+            if L == 1:
+                s = _make_slice(spec0, cx, pr, scalars, prior)
+            else:
+                # a family as lanes: its members stacked member-major on
+                # the halo axis, one slice over L x B halos
+                s = _family_slice(members, cx, pr, scalars)
+            if spec0.kind == "projected":
+                s.__dict__["bound_mask"] = _lanes(shr["bound_mask"], L)
+                if L > 1:
+                    # the projected-radius sort does not depend on the radius
+                    one = ProjectedApertureSlice(cx, pr, scalars, 0.0, spec0.axis)
+                    one.__dict__["bound_mask"] = shr["bound_mask"]
+                    s.__dict__["_proj_sort"] = tuple(_lanes(t, L) for t in one._proj_sort)
+            else:
+                s.__dict__.update({k: _lanes(v, L) for k, v in shr.items()})
+            res = compute_properties(s, spec0.keys)
+            B = scalars.index.shape[0]
+            for i, spec in enumerate(members):
+                r = {k: v[i * B : (i + 1) * B] for k, v in res.items()}
+                if truncated:
+                    r["__needs_bigger__"] = r["__needs_bigger__"] | trunc_bad
+                prior[spec.group] = r
+                out[spec.group] = r
         return out
 
     return fn
@@ -154,6 +299,7 @@ def _process_bucket(
     search_radius_phys: torch.Tensor,  # (B,) physical
     is_central: torch.Tensor,  # (B,) bool
     fof_id: torch.Tensor,  # (B,) i64
+    trunc: Optional[int] = None,  # sorted-prefix row truncation
 ):
     """One padded bucket: range gather + every property calculation."""
     a = float(ctx.a)
@@ -208,7 +354,7 @@ def _process_bucket(
         is_central=is_central,
         fof_id=fof_id,
     )
-    out = _halo_fn(ctx, specs)(parts, scalars)
+    out = _halo_fn(ctx, specs, trunc)(parts, scalars)
     for res in out.values():
         res["__needs_bigger__"] = res["__needs_bigger__"] & ~overflow
     return out, overflow
@@ -229,12 +375,52 @@ def _quantize_cap(n: int, S: int, floor: int = 128) -> int:
     return k
 
 
+def min_physical_radius(specs: Sequence[HaloTypeSpec]) -> float:
+    """Largest fixed physical radius any spec needs (Mpc): the floor of
+    every halo's search radius, so a wide aperture does not send every
+    small halo round the retry ladder."""
+    r = 0.0
+    for spec in specs:
+        if spec.kind in ("aperture", "projected") and spec.aperture_radius_mpc:
+            r = max(r, float(spec.aperture_radius_mpc))
+        if spec.kind == "SO" and spec.so_type == "physical" and spec.so_multiple:
+            r = max(r, float(spec.so_multiple))
+    return r
+
+
+def _pass_of(spec: HaloTypeSpec) -> str:
+    wide = (
+        spec.kind in ("aperture", "projected")
+        and spec.aperture_radius_mpc is not None
+        and spec.aperture_radius_mpc > WIDE_RADIUS_MPC
+    )
+    return "wide" if wide else "narrow"
+
+
+def _keep_links(specs: Sequence[HaloTypeSpec], available) -> Tuple[HaloTypeSpec, ...]:
+    """Sever the copy links whose source is computed in no pass that
+    serves this one."""
+    return tuple(
+        dataclasses.replace(s, copy_from=None, copy_from_radius_mpc=None)
+        if s.copy_from is not None and s.copy_from not in available
+        else s
+        for s in specs
+    )
+
+
 @dataclass
 class EngineStats:
-    """Scheduling and throughput counters."""
+    """Scheduling and throughput counters (the first four as the JAX
+    engine counts them)."""
 
     n_bucket_calls: int = 0
     n_retries: int = 0
+    #: aperture specs copied from the next-smaller aperture, per tile
+    n_copied_specs: int = 0
+    #: tiles run with sorted-prefix truncation
+    n_truncated_tiles: int = 0
+    #: bucket calls by pass: 'narrow', 'wide', or 'one' (no split)
+    bucket_calls_by_pass: Dict[str, int] = field(default_factory=dict)
     #: wall seconds from each bucket's dispatch to its results on the
     #: host (device compute + transfers), summed
     compute_seconds: float = 0.0
@@ -262,6 +448,10 @@ class HaloEngine:
         self.chunk = chunk
         self.specs = tuple(specs)
         self.stats = EngineStats()
+        #: the narrow pass's results, the wide pass's copy sources (set
+        #: only between the two passes of one ``process`` call)
+        self._cross_copy_sources: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+        self._pass = "one"
 
     def _cube_for(self, ptype: str, radius_com: float) -> int:
         spec = self.chunk.ptypes[ptype].spec
@@ -285,12 +475,13 @@ class HaloEngine:
         index,  # (H,) i64 catalogue indices
         is_central,  # (H,) bool
         fof_id,  # (H,) i64
+        enclose_radius_phys=None,  # (H,) physical catalogue EncloseRadius
         specs: Optional[Tuple[HaloTypeSpec, ...]] = None,
     ) -> Dict[str, Dict[str, np.ndarray]]:
         """Process every halo; returns ``{group: {key: (H, ...) array}}``.
 
-        Centrals-only specs run for the centrals alone (satellites get
-        zeros), in a separate phase from the satellites."""
+        Without ``enclose_radius_phys`` neither the row truncation nor
+        the aperture copy runs."""
         if specs is None:
             specs = self.specs
         centres = np.asarray(centres)
@@ -298,10 +489,45 @@ class HaloEngine:
         index = np.asarray(index)
         fof_id = np.asarray(fof_id)
         cen = np.asarray(is_central, dtype=bool)
+        if enclose_radius_phys is not None:
+            enclose_radius_phys = np.asarray(enclose_radius_phys)
         H = len(index)
+        results: Dict[str, Dict[str, np.ndarray]] = {}
+
+        # ---- wide/narrow pass split ----
+        classes: Dict[str, List[HaloTypeSpec]] = {}
+        if WIDE_RADIUS_MPC > 0:
+            for s in specs:
+                classes.setdefault(_pass_of(s), []).append(s)
+        if len(classes) > 1:
+            # no split when every input radius already covers the widest
+            # aperture: both passes would gather alike
+            wide_max = max(s.aperture_radius_mpc for s in classes["wide"])
+            if H == 0 or float(np.min(search_radius_phys)) >= wide_max:
+                classes = {}
+        if len(classes) > 1:
+            narrow_groups = {s.group for s in classes["narrow"]}
+            try:
+                for name in ("narrow", "wide"):
+                    # the wide pass copies from the narrow pass's results
+                    groups = {s.group for s in classes[name]}
+                    if name == "wide":
+                        groups |= narrow_groups
+                    self._pass = name
+                    results.update(self.process(
+                        centres, search_radius_phys, index, cen, fof_id,
+                        enclose_radius_phys, specs=_keep_links(classes[name], groups),
+                    ))
+                    if name == "narrow":
+                        self._cross_copy_sources = results
+            finally:
+                self._cross_copy_sources = None
+                self._pass = "one"
+            return results
+
+        # ---- central/satellite phases: satellites run no SO ----
         co_specs = [s for s in specs if s.centrals_only]
         if co_specs and (~cen).any():
-            results: Dict[str, Dict[str, np.ndarray]] = {}
             non_co = tuple(s for s in specs if not s.centrals_only)
             for phase, sub_specs in (("cen", tuple(specs)), ("sat", non_co)):
                 rows = np.flatnonzero(cen if phase == "cen" else ~cen)
@@ -309,7 +535,9 @@ class HaloEngine:
                     continue
                 part = self.process(
                     centres[rows], search_radius_phys[rows], index[rows],
-                    cen[rows], fof_id[rows], specs=sub_specs,
+                    cen[rows], fof_id[rows],
+                    None if enclose_radius_phys is None else enclose_radius_phys[rows],
+                    specs=sub_specs,
                 )
                 for spec in sub_specs:
                     buf = results.setdefault(spec.group, {})
@@ -324,35 +552,65 @@ class HaloEngine:
                 for key in spec.keys:
                     buf.setdefault(key, np.zeros(H, np.float32))
             return results
-        results = {}
-        self._run(centres, search_radius_phys, index, cen, fof_id, specs, results, H)
+        self._run(centres, search_radius_phys, index, cen, fof_id,
+                  enclose_radius_phys, specs, results, H)
         return results
 
     # -- one population through the round/tile machinery -----------------
 
     def _run(self, centres, search_radius_phys, index, is_central, fof_id,
-             specs, results, H):
+             enclose, specs, results, H):
         ctx0 = self.ctx_base
         a = ctx0.a
-        radius_phys = np.asarray(search_radius_phys, np.float64).copy()
+        radius_phys = np.maximum(
+            np.asarray(search_radius_phys, np.float64), min_physical_radius(specs)
+        )
         pending = np.arange(H)
         chi, clo = geometry.split_hi_lo(np.asarray(centres))
 
-        so_targets = [
-            s.target_density(ctx0) for s in specs
-            if s.kind == "SO" and s.target_density(ctx0) is not None
-        ]
+        so_targets = []
+        for s in specs:
+            t = s.target_density(ctx0)
+            if t is None:
+                continue
+            if s.radius_multiple_of is not None and s.radius_multiple:
+                t = t / float(s.radius_multiple) ** 3
+            so_targets.append(t)
         target_com = min(so_targets) * a**3 / 1.5 if so_targets else 0.0
         so_centrals_only = any(s.centrals_only for s in specs if s.kind == "SO")
 
+        # ---- sorted-prefix truncation radius: the truncatable specs
+        # touch rows within max(EncloseRadius, largest fixed aperture)
+        ap_max = max(
+            (float(s.aperture_radius_mpc) for s in specs
+             if _spec_truncatable(s) and s.aperture_radius_mpc),
+            default=0.0,
+        )
+        trunc_enabled = (
+            enclose is not None
+            and len(ctx0.ptypes) == 1
+            and any(_spec_truncatable(s) for s in specs)
+            and all(
+                {c[0] for c in pt.cols_f + pt.cols_i} <= _BASE_FIELDS
+                for pt in self.chunk.ptypes.values()
+            )
+        )
+        rb_phys = (
+            np.maximum(np.asarray(enclose, np.float64), ap_max) * 1.001 + 1e-4
+            if trunc_enabled else None
+        )
+
         first_round = True
         while len(pending):
+            # truncation only in the first round: a retried halo carries
+            # a grown radius (and maybe a lying EncloseRadius)
+            do_trunc = trunc_enabled and first_round
             # ---- presize + exact candidate counts ----
             n = len(pending)
             c_pad = chi[pending].astype(np.float32)
             r_pad = (radius_phys[pending] / a).astype(np.float32)
             e_pad = is_central[pending] if so_centrals_only else np.ones(n, bool)
-            radius_dev, counts_dev = presize_and_count(
+            radius_dev, counts_dev, counts_b_dev = presize_and_count(
                 self.chunk,
                 self._tensor(c_pad),
                 self._tensor(r_pad),
@@ -360,6 +618,10 @@ class HaloEngine:
                 target_com,
                 ctx0.ptypes,
                 bool(so_targets) and first_round,
+                radius_trunc=(
+                    self._tensor((rb_phys[pending] / a).astype(np.float32))
+                    if do_trunc else None
+                ),
             )
             first_round = False
             radius_com = radius_dev.cpu().numpy()
@@ -368,6 +630,7 @@ class HaloEngine:
                 for pt, c in zip(ctx0.ptypes, counts_dev)
             }
             totals = sum(per_type_counts.values())
+            totals_b = sum(c.cpu().numpy().astype(np.int64) for c in counts_b_dev)
             rp = np.minimum(
                 np.maximum(radius_phys[pending], radius_com.astype(np.float64) * a),
                 MAX_SEARCH_RADIUS,
@@ -378,6 +641,7 @@ class HaloEngine:
 
             # ---- tile plan: sorted by count, B * sum(caps) <= budget ----
             typemax = {pt: per_type_counts[pt][order] for pt in ctx0.ptypes}
+            truncmax = totals_b[order]
 
             def caps_sum(maxes):
                 return sum(_next_pow2(int(m) + 8, 128) for m in maxes.values())
@@ -431,7 +695,36 @@ class HaloEngine:
                 while max(caps) // S > 48 * 1024:
                     S *= 2
                     caps = gather_caps(S)
-                plans.append(dict(sel=sel, B=B, caps=caps, cubes=cubes, S=S))
+
+                # aperture copy: every halo of the tile inside the
+                # next-smaller aperture -> copy instead of compute
+                bucket_specs = []
+                if enclose is not None:
+                    max_enclose = float(enclose[pending[sel]].max())
+                    for spec in specs:
+                        if (
+                            spec.copy_from is not None
+                            and spec.copy_from_radius_mpc is not None
+                            and max_enclose <= spec.copy_from_radius_mpc
+                        ):
+                            self.stats.n_copied_specs += 1
+                            if spec.strict_keys:
+                                bucket_specs.append(
+                                    dataclasses.replace(spec, keys=tuple(spec.strict_keys))
+                                )
+                        else:
+                            bucket_specs.append(spec)
+                else:
+                    bucket_specs = list(specs)
+                # truncation cap: the sorted prefix covers every row
+                # inside the truncation radius, so it needs no gather slack
+                trunc_tile = None
+                if do_trunc:
+                    kb = _quantize_cap(int(truncmax[pos - n_sel : pos].max(initial=0)) + 8, 1, 256)
+                    if kb < 0.85 * sum(caps):
+                        trunc_tile = min(kb, sum(caps))
+                plans.append(dict(sel=sel, B=B, caps=caps, cubes=cubes, S=S,
+                                  specs=tuple(bucket_specs), trunc=trunc_tile))
 
             # ---- bucket calls ----
             next_pending: List[int] = []
@@ -457,9 +750,10 @@ class HaloEngine:
                 t0 = time.perf_counter()
                 ctx = dataclasses.replace(ctx0, capacities=pl["caps"])
                 out, overflow = _process_bucket(
-                    ctx, tuple(specs), pl["cubes"], pl["S"], self.chunk,
+                    ctx, pl["specs"], pl["cubes"], pl["S"], self.chunk,
                     *(self._tensor(x) for x in
                       (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof)),
+                    pl["trunc"],
                 )
                 out = {
                     grp: {k: v[:nb].cpu().numpy() for k, v in d.items()}
@@ -468,10 +762,38 @@ class HaloEngine:
                 ov = overflow[:nb].cpu().numpy()
                 self.stats.compute_seconds += time.perf_counter() - t0
                 self.stats.n_bucket_calls += 1
+                self.stats.bucket_calls_by_pass[self._pass] = (
+                    self.stats.bucket_calls_by_pass.get(self._pass, 0) + 1
+                )
+                self.stats.n_truncated_tiles += pl["trunc"] is not None
+
+                # resolve in spec order, so copied apertures chain off
+                # earlier (maybe also copied) ones
+                bucket_out: Dict[str, Dict[str, np.ndarray]] = {}
+                for spec in specs:
+                    gdict = out.get(spec.group, {})
+                    source = bucket_out.get(spec.copy_from or "")
+                    if (
+                        source is None
+                        and spec.copy_from
+                        and self._cross_copy_sources is not None
+                    ):
+                        # a source of the narrow pass: its final results,
+                        # whose retries are already resolved
+                        xs = self._cross_copy_sources.get(spec.copy_from)
+                        if xs is not None:
+                            source = {k: xs[k][g] for k in spec.keys if k in xs}
+                            source["__needs_bigger__"] = np.zeros(nb, bool)
+                    source = source or {}
+                    res = {k: gdict[k] if k in gdict else source[k] for k in spec.keys}
+                    res["__needs_bigger__"] = gdict.get(
+                        "__needs_bigger__", source.get("__needs_bigger__")
+                    )
+                    bucket_out[spec.group] = res
 
                 needs = np.zeros(nb, dtype=bool)
                 for spec in specs:
-                    res = out[spec.group]
+                    res = bucket_out[spec.group]
                     flags = res["__needs_bigger__"]
                     if spec.centrals_only:
                         flags = flags & is_central[g]

@@ -115,10 +115,12 @@ def test_satellites_get_no_so_values(runs):
 def test_unported_keys_and_specs_raise(runs):
     ctx = HaloContext(**runs["ctx_kw"])
     chunk = chunk_from_numpy(runs["jchunk"], torch.device("cpu"))
-    bad_key = [HaloTypeSpec(kind="bound", group="BoundSubhalo", keys=("Mtot", "Vmax_soft"))]
-    with pytest.raises(NotImplementedError, match="Vmax_soft"):
+    # a hydro key: the port implements the DMO keys only
+    bad_key = [HaloTypeSpec(kind="bound", group="BoundSubhalo", keys=("Mtot", "Mgas"))]
+    with pytest.raises(NotImplementedError, match="Mgas"):
         HaloEngine(ctx, chunk, bad_key, "cpu").process(**runs["args"])
-    aperture = [HaloTypeSpec(kind="aperture", group="ExclusiveSphere/50kpc",
-                             keys=("Mtot",), aperture_radius_mpc=0.05)]
-    with pytest.raises(NotImplementedError, match="ExclusiveSphere/50kpc"):
-        HaloEngine(ctx, chunk, aperture, "cpu")
+    core_excised = [HaloTypeSpec(kind="SO", group="SO/500_crit_ce", keys=("Mtot",),
+                                 so_type="crit", so_multiple=500.0,
+                                 core_excision_fraction=0.15, centrals_only=True)]
+    with pytest.raises(NotImplementedError, match="SO/500_crit_ce"):
+        HaloEngine(ctx, chunk, core_excised, "cpu")

@@ -1,12 +1,13 @@
 """The port's copies of host code stay equal to the JAX package's.
 
 ``soap_tpu_torch`` must run where JAX and h5py are absent, so it carries
-copies of ``HaloContext``, ``HaloTypeSpec`` and the mock-universe
-generator instead of importing them; these tests hold the copies to the
-originals.
+copies of ``HaloContext``, ``HaloTypeSpec``, the property key lists and
+table, ``build_specs`` and the mock-universe generator instead of
+importing them; these tests hold the copies to the originals.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -14,11 +15,15 @@ import sys
 import numpy as np
 import pytest
 
+from soap_tpu.core import halo_types as jax_halo_types
 from soap_tpu.models import context as jax_context
 from soap_tpu.pipeline import engine as jax_engine
+from soap_tpu.pipeline import specs as jax_specs
 from soap_tpu.utils import mock_data as jax_mock
+from soap_tpu_torch.core import halo_types as torch_halo_types
 from soap_tpu_torch.models import context as torch_context
 from soap_tpu_torch.pipeline import engine as torch_engine
+from soap_tpu_torch.pipeline import specs as torch_specs
 from soap_tpu_torch.utils import mock_data as torch_mock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,6 +87,9 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "import sys\n"
         "import soap_tpu_torch.pipeline.engine, soap_tpu_torch.ops.inertia_loop\n"
         "import soap_tpu_torch.pipeline.specs, soap_tpu_torch.utils.mock_data\n"
+        "import soap_tpu_torch.ops.kinematics, soap_tpu_torch.core.registry\n"
+        "specs = soap_tpu_torch.pipeline.specs.build_specs(None, True, 100.0)\n"
+        "assert sum(len(s.keys) for s in specs) == 508\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
@@ -93,3 +101,36 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def _json(package, name):
+    with open(os.path.join(REPO, *package.split("."), name)) as f:
+        return json.load(f)
+
+
+def test_property_data_mirrors_original():
+    assert _json("soap_tpu_torch.core", "halo_type_property_keys.json") == _json(
+        "soap_tpu.core", "halo_type_property_keys.json"
+    )
+    theirs = _json("soap_tpu.core", "property_table.json")["properties"]
+    ours = _json("soap_tpu_torch.core", "property_table.json")["properties"]
+    assert list(ours) == list(theirs)
+    for key, e in theirs.items():
+        assert ours[key] == {"name": e["name"], "dmo_property": e["dmo_property"]}, key
+
+
+@pytest.mark.parametrize(
+    "halo_type", ["BoundSubhalo", "SO", "Aperture", "ProjectedAperture"]
+)
+def test_implemented_dmo_keys_match(halo_type):
+    ours = torch_halo_types.implemented_keys_for(halo_type, True)
+    assert ours and ours == jax_halo_types.implemented_keys_for(halo_type, True)
+
+
+def test_build_specs_matches_original():
+    ours = torch_specs.build_specs(None, True, 123.5)
+    theirs = jax_specs.build_specs(None, True, 123.5)
+    assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in theirs]
+    assert (len(ours), sum(len(s.keys) for s in ours)) == (38, 508)
+    with pytest.raises(NotImplementedError, match="parameter files"):
+        torch_specs.build_specs(object(), True, 123.5)

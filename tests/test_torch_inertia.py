@@ -208,3 +208,40 @@ def test_rows_radius_sorted_reaches_only_the_loop(monkeypatch, rows_radius_sorte
     )
     assert seen == [{"rows_radius_sorted": rows_radius_sorted}]
     assert res.tensor.shape == (1, 3, 6) and bool(res.found.all())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_single_pass_matches_jax(seed):
+    """Non-iterative configs: the loop-free sphere moment tensor, in
+    plain PyTorch on any device (no kernel launch)."""
+    c = _triaxial(seed)
+    it = [False] * 4
+    pos, w, masks, R = (np.stack([c[k], c[k]]) for k in ("pos", "w", "masks", "R"))
+    pos[1] *= -1.5
+    R[1] *= 1.5
+    search = np.array([0.5 * c["R"][0], 10.0 * c["R"][0]], np.float32)
+    check = [True, False, True, True]
+    ours = tI.inertia_tensor_multi(
+        *(torch.from_numpy(x.copy()) for x in (w, pos, masks, R)), c["red"], it,
+        search_radius=torch.from_numpy(search), check_search=check, single_pass=True,
+    )
+    assert tloop.launches == 0
+    for b in range(2):
+        res = jI.inertia_tensor_multi(
+            jnp.asarray(w[b]), jnp.asarray(pos[b]), jnp.asarray(masks[b]),
+            jnp.asarray(R[b]), np.asarray(c["red"]), np.asarray(it),
+            search_radius=jnp.float32(search[b]), check_search=np.asarray(check),
+            single_pass=True,
+        )
+        np.testing.assert_array_equal(ours.found[b].numpy(), np.asarray(res.found))
+        np.testing.assert_array_equal(ours.needs_bigger[b].numpy(), np.asarray(res.needs_bigger))
+        t_j = np.asarray(res.tensor)
+        np.testing.assert_allclose(
+            ours.tensor[b].numpy(), t_j, rtol=2e-5,
+            atol=1e-7 * float(np.abs(t_j).max() + 1e-30),
+        )
+    with pytest.raises(ValueError, match="non-iterative"):
+        tI.inertia_tensor_multi(
+            *(torch.from_numpy(x.copy()) for x in (w, pos, masks, R)), c["red"],
+            [True] * 4, single_pass=True,
+        )

@@ -16,11 +16,13 @@ import torch
 
 from soap_tpu.ops import geometry as jgeo
 from soap_tpu.ops import grid as jgrid
+from soap_tpu.ops import kinematics as jkin
 from soap_tpu.ops import radii as jradii
 from soap_tpu.ops import reductions as jred
 from soap_tpu.ops import so_radius as jso
 from soap_tpu_torch.ops import geometry as tgeo
 from soap_tpu_torch.ops import grid as tgrid
+from soap_tpu_torch.ops import kinematics as tkin
 from soap_tpu_torch.ops import radii as tradii
 from soap_tpu_torch.ops import reductions as tred
 from soap_tpu_torch.ops import so_radius as tso
@@ -184,3 +186,67 @@ def test_enclosed_mass_sorted(seed):
         *(torch.from_numpy(x) for x in (r, m, v, target)), 0.0
     )
     _close(ours, theirs)
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_velocity_dispersion_and_enclose_radius(seed):
+    rng = np.random.default_rng(seed)
+    B, K = 5, 200
+    mass = rng.lognormal(0, 0.3, (B, K)).astype(np.float32)
+    vel = rng.normal(0, 100, (B, K, 3)).astype(np.float32)
+    vcom = rng.normal(0, 10, (B, 3)).astype(np.float32)
+    radius = rng.gamma(2.0, 0.3, (B, K)).astype(np.float32)
+    mask = rng.random((B, K)) < 0.7
+    mask[0] = False
+    t = [torch.from_numpy(x) for x in (mass, vel, vcom, mask)]
+    theirs = jax.vmap(jred.velocity_dispersion_matrix)(mass, vel, vcom, mask)
+    dv = np.where(mask[..., None], vel - vcom[:, None], 0.0)
+    _close(tred.velocity_dispersion_matrix(*t), theirs,
+           atol=RTOL * (np.abs(dv).max(1) ** 2).max(1)[:, None])
+    _close(
+        tradii.enclose_radius(torch.from_numpy(radius), torch.from_numpy(mask)),
+        jax.vmap(jradii.enclose_radius)(radius, mask),
+    )
+
+
+@pytest.mark.parametrize("seed", [17, 18])
+def test_kinematics(seed):
+    rng = np.random.default_rng(seed)
+    B, K = 5, 300
+    mass = rng.lognormal(0, 0.3, (B, K)).astype(np.float32)
+    pos = rng.normal(size=(B, K, 3)).astype(np.float32)
+    vel = rng.normal(0, 100, (B, K, 3)).astype(np.float32)
+    mask = rng.random((B, K)) < 0.7
+    mask[0] = False
+    theirs = jax.vmap(jkin.angular_momentum)(mass, pos, vel, mask)
+    ours = tkin.angular_momentum(*(torch.from_numpy(x) for x in (mass, pos, vel, mask)))
+    terms = np.abs(np.where(mask, mass, 0)[..., None] * np.cross(pos, vel))
+    _close(ours, theirs, atol=RTOL * terms.sum(1))
+
+    r, m, v, sel = _profile(seed)
+    sel[1] = False  # nothing selected
+    _close_vmax(tkin.vmax_sorted(*(torch.from_numpy(x) for x in (m, r, sel))),
+                jax.vmap(jkin.vmax_sorted)(m, r, sel))
+    # two softening values over two row segments of the same sort
+    seg = np.random.default_rng(seed + 1).random(r.shape) < 0.5
+    masks = [sel & seg, sel & ~seg]
+    softs = (0.05, 0.4)
+    theirs = jax.vmap(lambda a, b, c, d: jkin.vmax_sorted_multi_soft(a, b, [c, d], softs))(
+        m, r, *masks
+    )
+    ours = tkin.vmax_sorted_multi_soft(
+        torch.from_numpy(m), torch.from_numpy(r), [torch.from_numpy(x) for x in masks], softs
+    )
+    _close_vmax(ours, theirs)
+
+    L = np.abs(rng.normal(0, 1e3, B)).astype(np.float32)
+    M = np.abs(rng.normal(0, 10, B)).astype(np.float32)
+    M[2] = 0.0
+    R = np.abs(rng.normal(0, 1, B)).astype(np.float32)
+    _close(tkin.spin_parameter(*(torch.from_numpy(x) for x in (L, M, R)), 43.0),
+           jkin.spin_parameter(L, M, R, 43.0))
+
+
+def _close_vmax(ours, theirs):
+    _close(ours.radius, theirs.radius)
+    _close(ours.vmax_sq_over_G, theirs.vmax_sq_over_G)

@@ -89,15 +89,22 @@ def test_presize_and_count_match(staged, presize):
     rho_crit0 = 3.0 * (100.0 * uni.h) ** 2 / (8.0 * np.pi * mock_data.G_INTERNAL)
     target = 200.0 * rho_crit0 * (uni.omega_m + uni.omega_lambda) / 1.5
 
+    # the truncation count's radius: some above, some below the presized one
+    rb = (r0 * rng.uniform(0.3, 3.0, H)).astype(np.float32)
+
     jchunk = jcd.ChunkData(boxsize=25.0, ptypes={"PartType1": jpt})
-    r_j, c_j, _ = jcd.presize_and_count(
+    r_j, c_j, b_j = jcd.presize_and_count(
         jchunk, jnp.asarray(chi), jnp.asarray(r0), jnp.asarray(eligible),
         jnp.float32(target), ("PartType1",), presize,
+        radius_trunc=jnp.asarray(rb), do_trunc=True,
     )
     tchunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": tpt})
-    r_t, c_t = tcd.presize_and_count(
+    r_t, c_t, b_t = tcd.presize_and_count(
         tchunk, torch.from_numpy(chi), torch.from_numpy(r0),
         torch.from_numpy(eligible), target, ("PartType1",), presize,
+        radius_trunc=torch.from_numpy(rb),
     )
     np.testing.assert_array_equal(r_t.numpy(), np.asarray(r_j))
     np.testing.assert_array_equal(c_t[0].numpy(), np.asarray(c_j[0]))
+    np.testing.assert_array_equal(b_t[0].numpy(), np.asarray(b_j[0]))
+    assert (b_t[0] <= c_t[0]).all() and (b_t[0] < c_t[0]).any()
