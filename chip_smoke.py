@@ -3,26 +3,34 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py            # add --profile for a kernel profile
+    python3 chip_smoke.py            # add --profile for kernel profiles
 
 Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
  2. build: both CUDA kernels from soap_tpu_torch/csrc into
     build/soap_tpu_torch, one nvcc per source, started together;
- 3. K1 (range gather) against its plain version on a 10.5M x 16 store,
+ 3. K1 (range gather) against its plain version at two cells, a 10.5M x
+    16 store (DMO rows) and a 1.5M x 128 one (the hydro path's gas rows),
     timed beside the one PyTorch call that computes the same rows
     (torch.index_select on the precomputed row index);
- 4. K2 (inertia loop) against its plain version at five cells: the bound
+ 4. K2 (inertia loop) against its plain version at six cells: the bound
     spec's (B=256, K=32768, C=2; one CTA per halo), an SO family's 8
     densities x 4 configs on the same rows, folded into C=32 or, as the
     engine lays them, as 8 x 256 halos at C=4, a middle one (B=64,
-    K=131072; clusters of 2) and one giant halo (B=1, K=2^20; a cluster
-    of 16), each also launched twice for torch.equal results;
+    K=131072; clusters of 2), one giant halo (B=1, K=2^20; a cluster of
+    16) and the luminosity-weighted stellar configs' (9 bands x 256 star
+    segments of 4096 rows on the halo axis, C=2), each also launched
+    twice for torch.equal results;
  5. the engine on the GPU against the engine on the CPU, with the full
     DMO production spec list and catalogue EncloseRadius, on a 64-halo
     mock with satellites, understated EncloseRadius (the truncation
     cross-check sends halos round the retry ladder), aperture copies
     and both the narrow and the wide pass;
+ 5h. the same for the default hydro list (38 calculations, 4729 keys) on
+    the CPU hydro test's 8-halo mock of gas, dark matter, stars and black
+    holes: every key within the test's tolerances, equal counters, K1
+    launched for every particle type, K2 for gas, star and luminosity
+    configs;
  6. the main path: bench.py::bench_dmo's run (2048 halos, 9.62M
     particles, the full spec list of 38 calculations and 508 keys, with
     EncloseRadius): a warm pass, then TIMED_PASSES timed passes, each
@@ -31,13 +39,20 @@ Phases, each printing its lines and raising on failure:
     its plain version at the shapes the path gives it;
  7. the giant-halo path: bench.py's giant configuration (6 halos of
     0.9-1.6M particles) with the engine slice's small spec set (2
-    calculations, 12 keys; the full list at this size would not fit the
-    run's time limit) through the same passes, where K2 runs in clusters.
-It then prints the kernels' JSON line (each kernel's time beside its
+    calculations, 12 keys) and GIANT_TIMED_PASSES timed passes (the full
+    list and five passes at this size would not fit the run's time
+    limit), where K2 runs in clusters;
+ 8. the hydro path: bench.py::bench_hydro's universe at the DMO path's
+    2048 halos (~11M particles in four types), built in memory with no
+    file, with the full default hydro list and EncloseRadius, through
+    the same passes, reporting K1 launches by particle type and K2
+    launches by config kind.
+It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
-and the library call's), the card's nvidia-smi line, and last a JSON
-object with "ok": true.  Without a CUDA device it exits 1 before
-printing any result.  Imports torch, numpy and soap_tpu_torch only.
+and the library call's; each path's launches and checked calls), the
+card's nvidia-smi line, and last a JSON object with "ok": true.  Without
+a CUDA device it exits 1 before printing any result.  Imports torch,
+numpy and soap_tpu_torch only.
 """
 
 import json
@@ -49,6 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from soap_tpu_torch.models import halo_slice as hs
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
@@ -56,13 +72,16 @@ from soap_tpu_torch.ops import kernel_lib
 from soap_tpu_torch.ops import range_gather as rg
 from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
+from soap_tpu_torch.pipeline.chunks import mock_fields, stage_chunk
 from soap_tpu_torch.pipeline.engine import HaloEngine
+from soap_tpu_torch.pipeline.run import age_table, make_context, mock_metadata
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import build_mock_universe
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
+GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
 ENGINE_SEED = 11
 BENCH = dict(
     n_halos=2048, n_field=400000, boxsize=170.0, seed=20260816,
@@ -73,8 +92,22 @@ GIANT = dict(
     n_halos=6, n_field=200_000, boxsize=170.0, seed=4242,
     mass_range=(9.0e4, 1.6e5),
 )
-#: the K1 cell: store rows N, columns F, halos B, capacity, S, ranges
-K1_CELL = (10_500_000, 16, 1024, 8192, 64, 32)
+#: bench.py::bench_hydro's universe, at the DMO headline's 2048 halos
+HYDRO = dict(
+    n_halos=2048, n_field=100_000, boxsize=100.0, seed=20260817, hydro=True,
+    mass_range=(3.2, 3000.0),
+)
+#: phase 5h's small hydro mock (tests/test_torch_engine_hydro.py's)
+HYDRO_SMALL = dict(
+    n_halos=6, n_field=1000, boxsize=16.0, seed=101, hydro=True, n_satellites=2,
+    particle_mass=4.0, mass_range=(100.0, 5000.0),
+)
+#: K1 cells: name, store rows N, columns F, halos B, capacity, S, ranges;
+#: "gas": the hydro path's gas store (128 columns, no alignment head)
+K1_CELLS = (
+    ("main", 10_500_000, 16, 1024, 8192, 64, 32),
+    ("gas", 1_500_000, 128, 256, 4096, 64, 32),
+)
 #: K2 cells: name, B, K, C, L.  L = 8: an SO family's 8 members x 4
 #: configs, folded into the config axis (C = 32, B halos) or, as the
 #: engine runs it, laid on the halo axis (C = 4, 8 x B halos); the two
@@ -83,6 +116,9 @@ K2_CELLS = (
     ("main", 256, 32768, 2, 1), ("family", 256, 32768, 32, 1),
     ("family-lanes", 256, 32768, 4, 8),
     ("middle", 64, 131072, 2, 1), ("giant", 1, 1 << 20, 2, 1),
+    # the luminosity-weighted stellar configs: 9 bands x 256 halos' star
+    # segments on the halo axis, each lane its band's weights, C = 2
+    ("band-lanes", 256, 4096, 2, 9),
 )
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 #: HBM bytes/s and float32 FLOP/s outside the tensor cores
@@ -168,9 +204,9 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernel_lib.BUILD_SECONDS})")
 
 
-def phase_k1(dev):
-    rng = np.random.default_rng(1)
-    N, F, B, cap, S, n_ranges = K1_CELL
+def phase_k1(dev, cell):
+    name, N, F, B, cap, S, n_ranges = cell
+    rng = np.random.default_rng([1, F])
     packed = torch.from_numpy(rng.random((N, F), dtype=np.float32)).to(dev)
     counts = rng.integers(0, 160, (B, n_ranges)).astype(np.int32)
     starts = np.sort(rng.integers(0, N - 200, (B, n_ranges)), 1).astype(np.int32)
@@ -197,12 +233,12 @@ def phase_k1(dev):
     library_ms = time_ms(lambda: torch.index_select(packed, 0, idx))
     bms, by = k1_bound(packed, table, S, cap)
     gbs = 2 * B * cap * F * 4 / (ms * 1e-3) / 1e9
-    say("K1", f"B={B} capacity={cap} F={F} store={N}x{F}: torch.equal ok "
+    say("K1", f"{name} B={B} capacity={cap} F={F} store={N}x{F}: torch.equal ok "
         f"(max abs err {err:.3e}); kernel {ms:.4f} ms ({gbs:.0f} GB/s moved), "
         f"plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms, bound "
         f"{bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=library_ms)
+    return dict(cell=f"N={N} F={F} B={B} capacity={cap}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
 
 def _cloud(rng, B, K, C):
@@ -247,9 +283,14 @@ def phase_k2(dev):
     for name, B, K, C, L in K2_CELLS:
         # one seed per cloud shape: the family cells share their clouds
         rng = np.random.default_rng([2, B, K, C * L])
-        *arrays, reduced = _cloud(rng, B, K, C * L)
+        *arrays, reduced = _cloud(rng, B, K, C * (1 if name == "band-lanes" else L))
         w, pos, masks, R = (torch.from_numpy(x).to(dev) for x in arrays)
-        if L > 1:  # member m of halo b becomes halo m * B + b
+        if name == "band-lanes":  # band n of halo b becomes halo n * B + b
+            lum = 10.0 ** rng.uniform(6.0, 9.0, (L, B, K)).astype(np.float32)
+            w = torch.from_numpy(lum.reshape(L * B, K)).to(dev)
+            pos, masks, R = pos.repeat(L, 1, 1), masks.repeat(L, 1, 1), R.repeat(L, 1)
+            B = L * B
+        elif L > 1:  # member m of halo b becomes halo m * B + b
             w, pos = w.repeat(L, 1), pos.repeat(L, 1, 1)
             masks = masks.view(B, L, C, K).transpose(0, 1).reshape(L * B, C, K)
             R = R.view(B, L, C).transpose(0, 1).reshape(L * B, C)
@@ -325,24 +366,50 @@ def _bench_inputs(uni, device):
     return ctx, chunk, args, specs
 
 
+def _hydro_inputs(uni, device):
+    """Context, staged chunk (gas, dark matter, stars, black holes, built
+    in memory as the JAX reader would hand them over), process()
+    arguments (all halos central, 1.01 x EncloseRadius, EncloseRadius)
+    and the default hydro spec list of a mock hydro universe."""
+    meta = mock_metadata(uni)
+    specs = build_specs(None, False, meta.virBN98)
+    ptypes = [pt for pt in meta.ptypes if meta.datasets[pt]]
+    ctx = make_context(meta, ptypes, False)
+    chunk = stage_chunk(mock_fields(uni, specs, meta, ptypes, age_table(meta)),
+                        uni.boxsize, device)
+    H = uni.n_halos
+    args = dict(
+        centres=uni.halo_pos,
+        search_radius_phys=uni.halo_renclose * uni.a * 1.01,
+        index=np.arange(H, dtype=np.int64),
+        is_central=np.ones(H, dtype=bool),
+        fof_id=np.arange(1, H + 1, dtype=np.int64),
+        enclose_radius_phys=uni.halo_renclose * uni.a,
+    )
+    return ctx, chunk, args, specs
+
+
 #: keys compared at rtol 1e-5 and exactly, as tests/test_torch_engine_full.py
+#: (DMO) and tests/test_torch_engine_hydro.py (hydro)
 TIGHT = ("r", "Mtot", "Mdm", "HalfMassRadiusTot", "HalfMassRadiusDM")
 COUNTS = ("Ndm",)
+HYDRO_TIGHT = ("r", "Mtot", "Mgas", "Mdm", "Mstar", "Mbh_dynamical")
+HYDRO_COUNTS = ("Ngas", "Ndm", "Nstar", "Nbh")
 
 
-def _compare(ref, got):
-    """The CPU full-list test's tolerances: counts equal; r, masses and
-    half-mass radii within rtol 1e-5; the rest within rtol 1e-3 and atol
-    1e-4 max|ref| per key."""
+def _compare(ref, got, counts=COUNTS, tight=TIGHT):
+    """The CPU parity tests' tolerances: counts equal; the tight keys
+    within rtol 1e-5; the rest within rtol 1e-3 and atol 1e-4 max|ref|
+    per key."""
     for group in ref:
         for key in ref[group]:
             a = np.asarray(ref[group][key], np.float64)
             b = np.asarray(got[group][key], np.float64)
             if a.shape != b.shape or not np.isfinite(b).all():
                 ok = False
-            elif key in COUNTS:
+            elif key in counts:
                 ok = np.array_equal(a, b)
-            elif key in TIGHT:
+            elif key in tight:
                 ok = np.allclose(b, a, rtol=1e-5, atol=0.0)
             else:
                 scale = np.abs(a).max() if a.size else 1.0
@@ -401,6 +468,46 @@ def phase_engine(dev):
         f"counters equal {c_gpu}; launches K1 {n1}, K2 {n2}")
 
 
+def hydro_engine_case(where):
+    """Phase 5h's run on one device: the CPU hydro test's mock (two
+    satellites, they and every fourth halo satellites, every third input
+    radius shrunk x0.002, EncloseRadius understated x0.3) with the full
+    default hydro list."""
+    uni = build_mock_universe(**HYDRO_SMALL)
+    ctx, chunk, args, specs = _hydro_inputs(uni, torch.device(where))
+    H = uni.n_halos
+    args["is_central"] = (np.arange(H) % 4 != 0) & (np.asarray(uni.halo_rank) == 0)
+    args["search_radius_phys"] = args["search_radius_phys"] * np.where(
+        np.arange(H) % 3 == 0, 0.002, 1.0
+    )
+    args["enclose_radius_phys"] = args["enclose_radius_phys"] * 0.3
+    rg.launches = il.launches = 0
+    hs.k2_launches_by_config.clear()
+    eng = HaloEngine(ctx, chunk, specs, where)
+    res = eng.process(**args)
+    return uni, res, eng.stats, dict(hs.k2_launches_by_config)
+
+
+def phase_engine_hydro(dev):
+    uni, ref, st_c, _ = hydro_engine_case("cpu")
+    _, got, st_g, k2_by = hydro_engine_case(dev)
+    _compare(ref, got, HYDRO_COUNTS, HYDRO_TIGHT)
+    c_cpu, c_gpu = _counters(st_c), _counters(st_g)
+    if c_cpu != c_gpu:
+        raise AssertionError(f"hydro engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
+    if min(c_gpu["bucket_calls"], c_gpu["copied_specs"]) == 0:
+        raise AssertionError(f"a hydro mechanism did not run on the GPU: {c_gpu}")
+    k1_by = dict(sorted(st_g.k1_launches_by_ptype.items()))
+    if len(k1_by) != 4 or min(k1_by.values()) == 0:
+        raise AssertionError(f"K1 did not launch for every particle type: {k1_by}")
+    if min(k2_by.get(c, 0) for c in ("gas", "star", "lum")) == 0:
+        raise AssertionError(f"K2 did not launch for gas, star and luminosity configs: {k2_by}")
+    n_keys = sum(len(d) for d in got.values())
+    say("engine-hydro", f"{uni.n_halos} halos, {len(got)} groups, {n_keys} keys: GPU == "
+        f"CPU within tolerance; counters equal {c_gpu}; K1 launches by type {k1_by}; "
+        f"K2 launches by config {dict(sorted(k2_by.items()))}")
+
+
 class PathCheck:
     """Holds every K1 and K2 call of one engine pass against its plain
     version on the same inputs, right after the call, and records the
@@ -450,41 +557,40 @@ class PathCheck:
         rg.range_gather_blocks, inertia_ops.inertia_loop = self._range_gather, self._inertia_loop
 
 
-def drive_path(tag, uni, dev, full):
-    """A universe through the engine: a warm pass, then TIMED_PASSES timed
-    passes, each with every launch counter set to 0 just before it and
-    read just after, then one checked pass (PathCheck).  ``full``: the
-    full production spec list with the catalogue's EncloseRadius, as
-    bench_dmo runs it; else the engine slice's small spec set without it.
-    Returns the last timed pass's results and counts, and the checks."""
-    ctx, chunk, args, specs = _bench_inputs(uni, dev)
-    if not full:
-        specs = slice_specs()
-        del args["enclose_radius_phys"]
+def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
+    """One path's inputs (context, staged chunk, process() arguments, spec
+    list) through the engine: a warm pass, then ``timed`` timed passes,
+    each with every launch counter set to 0 just before it and read just
+    after, then one checked pass (PathCheck).  Returns the last timed
+    pass's results and counts, and the checks."""
+    ctx, chunk, args, specs = inputs
     n_keys = sum(len(s.keys) for s in specs)
-    say(tag, f"spec list: {len(specs)} calculations, {n_keys} keys"
-        + ("" if full else " (the engine slice's)"))
+    say(tag, f"spec list: {len(specs)} calculations, {n_keys} keys")
+    t0 = time.perf_counter()
     HaloEngine(ctx, chunk, specs, dev).process(**args)  # warm pass
     torch.cuda.synchronize()
+    say(tag, f"warm pass {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     rates = []
-    for _ in range(TIMED_PASSES):
+    for _ in range(timed):
         engine = HaloEngine(ctx, chunk, specs, dev)
         torch.cuda.synchronize()
         rg.launches = il.launches = 0
         il.cluster_launches.clear()
+        hs.k2_launches_by_config.clear()
         t0 = time.perf_counter()
         res = engine.process(**args)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
         by_g = dict(sorted(il.cluster_launches.items()))
+        k2_by_config = dict(sorted(hs.k2_launches_by_config.items()))
         if min(launches.values()) == 0:
             raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
-        rates.append(uni.n_halos / dt)
+        rates.append(H / dt)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    k1_by_ptype = dict(sorted(engine.stats.k1_launches_by_ptype.items()))
 
-    H = uni.n_halos
     if sum(len(d) for d in res.values()) != n_keys:
         raise AssertionError(f"{tag}: {sum(len(d) for d in res.values())} keys, not {n_keys}")
     for group, d in res.items():
@@ -504,15 +610,17 @@ def drive_path(tag, uni, dev, full):
     for shape, n in check.k2["shapes"].items():
         cg = " ".join(shape.split()[2:])
         by_cg[cg] = by_cg.get(cg, 0) + n
-    say(tag, f"{H} halos: halos/s over {TIMED_PASSES} timed passes median "
+    say(tag, f"{H} halos: halos/s over {timed} timed passes median "
         f"{np.median(rates):.2f} (min {min(rates):.2f}, max {max(rates):.2f}; "
         f"{', '.join(f'{r:.2f}' for r in rates)}); {_counters(engine.stats)}; "
-        f"peak device memory {peak:.2f} GiB; launches {launches}, K2 launches "
+        f"peak device memory {peak:.2f} GiB; launches per pass {launches}, K1 "
+        f"launches by type {k1_by_ptype}, K2 launches by config {k2_by_config}, "
         f"by G {by_g}, by C and G {dict(sorted(by_cg.items()))}")
     say(tag, f"checked pass, every call against its plain version: K1 "
         f"bit-equal at {check.k1['shapes']}; K2 within rtol {K2_RTOL} at "
         f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e})")
-    return dict(res=res, launches=launches, by_g=by_g,
+    return dict(res=res, launches=launches, by_g=by_g, k1_by_ptype=k1_by_ptype,
+                k2_by_config=k2_by_config, inputs=inputs,
                 check={"range_gather": check.k1, "inertia_loop": check.k2})
 
 
@@ -522,20 +630,25 @@ def phase_main(dev):
     t1 = time.perf_counter()
     say("main", f"universe {len(uni.pos)} particles, {uni.n_halos} halos in "
         f"{t1 - t0:.1f} s")
-    run = drive_path("main", uni, dev, full=True)
+    run = drive_path("main", uni.n_halos, _bench_inputs(uni, dev), dev)
     if not (run["res"]["BoundSubhalo"]["Mtot"] > 0).all():
         raise AssertionError("BoundSubhalo/Mtot not positive for every halo")
-    run["uni"] = uni
     return run
 
 
 def phase_giant(dev):
+    """The giant-halo path with the engine slice's small spec set (2
+    calculations, 12 keys; the full list at this size would not fit the
+    run's time limit) and no EncloseRadius."""
     t0 = time.perf_counter()
     uni = build_mock_universe(**GIANT)
     n_big = max(len(ids) for ids in uni.bound_ids)
     say("giant", f"universe {len(uni.pos)} particles, {uni.n_halos} halos, biggest "
         f"{n_big} particles; built in {time.perf_counter() - t0:.1f} s")
-    run = drive_path("giant", uni, dev, full=False)
+    ctx, chunk, args, _ = _bench_inputs(uni, dev)
+    del args["enclose_radius_phys"]
+    run = drive_path("giant", uni.n_halos, (ctx, chunk, args, slice_specs()), dev,
+                     GIANT_TIMED_PASSES)
     ndm = run["res"]["BoundSubhalo"]["Ndm"]
     want = np.array([len(ids) for ids in uni.bound_ids])
     if not np.array_equal(ndm, want):
@@ -545,13 +658,40 @@ def phase_giant(dev):
     return run
 
 
-def phase_profile(dev, uni):
-    """torch.profiler over one main-path pass: device time summed over
+def phase_hydro(dev):
+    """The hydro path: bench.py::bench_hydro's universe built in memory,
+    the full default hydro list (38 calculations, 4729 keys)."""
+    t0 = time.perf_counter()
+    uni = build_mock_universe(**HYDRO)
+    n_part = len(uni.pos) + sum(len(f["Coordinates"]) for f in uni.extra_ptypes.values())
+    t1 = time.perf_counter()
+    inputs = _hydro_inputs(uni, dev)
+    torch.cuda.synchronize()
+    say("hydro", f"universe {n_part} particles ({len(uni.pos)} DM, "
+        + ", ".join(f"{pt} {len(f['Coordinates'])}" for pt, f in uni.extra_ptypes.items())
+        + f"), {uni.n_halos} halos, built in {t1 - t0:.1f} s, staged in "
+        f"{time.perf_counter() - t1:.1f} s; row widths "
+        f"{ {pt: c.row_width for pt, c in inputs[1].ptypes.items()} }")
+    run = drive_path("hydro", uni.n_halos, inputs, dev)
+    sub = run["res"]["BoundSubhalo"]
+    for key in ("Mtot", "Mgas", "Mstar"):
+        if not (sub[key] > 0).all():
+            raise AssertionError(f"hydro BoundSubhalo/{key} not positive for every halo")
+    if len(run["k1_by_ptype"]) != 4 or min(run["k1_by_ptype"].values()) == 0:
+        raise AssertionError(f"hydro path: K1 missed a particle type {run['k1_by_ptype']}")
+    if min(run["k2_by_config"].get(c, 0) for c in ("gas", "star", "lum")) == 0:
+        raise AssertionError(f"hydro path: K2 missed gas/star/luminosity configs "
+                             f"{run['k2_by_config']}")
+    return run
+
+
+def phase_profile(dev, tag, inputs):
+    """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ctx, chunk, args, specs = _bench_inputs(uni, dev)
+    ctx, chunk, args, specs = inputs
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -569,7 +709,7 @@ def phase_profile(dev, uni):
             d[1] += 1
     total = sum(v[0] for v in by_name.values())
     calls = sum(v[1] for v in by_name.values())
-    say("profile", f"main path: {total:.2f} ms device time in {calls} kernels; "
+    say("profile", f"{tag} path: {total:.2f} ms device time in {calls} kernels; "
         f"unprofiled passes {', '.join(f'{w:.4f}' for w in walls)} s; busy share "
         f"{total / 1e3 / float(np.median(walls)):.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -588,34 +728,53 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
-    k1 = phase_k1(dev)
+    k1 = {cell[0]: phase_k1(dev, cell) for cell in K1_CELLS}
     k2 = phase_k2(dev)
     phase_engine(dev)
+    phase_engine_hydro(dev)
     main_run = phase_main(dev)
     giant_run = phase_giant(dev)
+    hydro_run = phase_hydro(dev)
     if "--profile" in sys.argv[1:]:
-        phase_profile(dev, main_run["uni"])
+        phase_profile(dev, "main", main_run["inputs"])
+        phase_profile(dev, "hydro", hydro_run["inputs"])
 
-    # launches: the main path's count; giant_path_launches: the giant
-    # path's; path_checks: each path's checked pass (calls, the shapes it
-    # gave the kernel, max abs err against the plain version); ms,
-    # plain_ms, bound_ms and library_ms: the phase-3/4 cell's.  The giant
-    # K2 cell stands for the streaming TPU kernel.
+    # launches: the main path's count; giant_path_launches and
+    # hydro_path_launches: those paths'; path_checks: each path's checked
+    # pass (calls, max abs err against the plain version, the shapes it
+    # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
+    # library_ms: the phase-3/4 cell's.  The giant K2 cell stands for the streaming TPU
+    # kernel.
+    runs = {"main": main_run, "giant": giant_run, "hydro": hydro_run}
+
+    def summary(check):
+        """A checked pass in brief: calls, max abs error, and the range of
+        halos B and rows (capacity or K) over its distinct shapes (the
+        shapes themselves are on the path's lines above)."""
+        dims = [dict(kv.split("=") for kv in shape.split()) for shape in check["shapes"]]
+        rows = [int(d.get("capacity", d.get("K", 0))) for d in dims]
+        bs = [int(d["B"]) for d in dims]
+        return dict(calls=check["calls"], max_abs_err=check["max_abs_err"],
+                    distinct_shapes=len(dims), B=[min(bs, default=0), max(bs, default=0)],
+                    rows=[min(rows, default=0), max(rows, default=0)])
+
     def path(name):
         return dict(launches=main_run["launches"][name],
                     giant_path_launches=giant_run["launches"][name],
-                    path_checks={"main": main_run["check"][name],
-                                 "giant": giant_run["check"][name]})
+                    hydro_path_launches=hydro_run["launches"][name],
+                    path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [
         dict(name="range_gather", route="cuda",
              source="soap_tpu_torch/csrc/range_gather.cu",
-             replaces="soap_tpu/ops/dma_gather.py:247", **path("range_gather"), **k1),
+             replaces="soap_tpu/ops/dma_gather.py:247", cell_name=cell,
+             **path("range_gather"), **k1[cell])
+        for cell in k1
     ] + [
         dict(name="inertia_loop", route="cuda",
              source="soap_tpu_torch/csrc/inertia_loop.cu",
              replaces="soap_tpu/ops/pallas_inertia.py:"
-                      + ("480" if cell == "giant" else "461"),
+                      + ("480" if cell == "giant" else "461"), cell_name=cell,
              **path("inertia_loop"), **k2[cell])
         for cell in k2
     ]

@@ -1,9 +1,11 @@
-"""The property table's keys, output names and DMO flags.
+"""The property table's keys, output names, DMO flags and particle datasets.
 
 A trimmed copy of ``soap_tpu/core/property_table.json`` (the reference's
-``full_property_list``) as package data: per property key only its
-output dataset name and whether a dark-matter-only run computes it, the
-two fields ``build_specs`` and ``implemented_keys_for`` read.
+``full_property_list``) as package data: per property key its output
+dataset name, whether a dark-matter-only run computes it (every key a
+DMO run skips is a hydro key), and the particle datasets it needs, the
+fields ``build_specs``, ``implemented_keys_for`` and
+``pipeline/run.py::required_datasets`` read.
 ``tests/test_torch_host_mirror.py`` holds the copy to the original.
 """
 
@@ -13,7 +15,7 @@ import json
 from dataclasses import dataclass
 from functools import lru_cache
 from importlib import resources
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -21,6 +23,7 @@ class PropertyDef:
     key: str  # internal name used by the slice classes
     name: str  # dataset name in the output file
     dmo: bool  # computed in dark-matter-only runs?
+    particle_properties: Tuple[str, ...]  # "PartTypeN/<dataset>" it reads
 
 
 class PropertyTable:
@@ -28,7 +31,10 @@ class PropertyTable:
 
     def __init__(self, data: dict):
         self._props: Dict[str, PropertyDef] = {
-            key: PropertyDef(key, e["name"], bool(e["dmo_property"]))
+            key: PropertyDef(
+                key, e["name"], bool(e["dmo_property"]),
+                tuple(e["particle_properties"]),
+            )
             for key, e in data["properties"].items()
         }
 

@@ -1,9 +1,11 @@
-"""Angular momentum, Vmax and the spin parameter over padded halo slices.
+"""Angular momentum, kappa_corot, cylindrical velocities, Vmax and the
+spin parameter over padded halo slices.
 
 Ported from ``soap_tpu/ops/kinematics.py`` (reference
-``SOAP/property_calculation/kinematic_properties.py:228-263`` and
-``:555-593``).  Every function takes a leading halo axis: per-particle
-(B, K[, 3]) arrays with a (B, K) selection, per-halo (B[, 3]) results.
+``SOAP/property_calculation/kinematic_properties.py`` and
+``cylindrical_coordinates.py``).  Every function takes a leading halo
+axis: per-particle (B, K[, 3]) arrays with a (B, K) selection, per-halo
+(B[, 3]) results.
 """
 
 from __future__ import annotations
@@ -103,6 +105,100 @@ def vmax_sorted_multi_soft(
         radius=torch.where(any_usable, best_x, 0.0),
         vmax_sq_over_G=torch.where(any_usable, torch.clamp(best, min=0.0), 0.0),
     )
+
+
+class AngularMomentumResult(NamedTuple):
+    L: torch.Tensor  # (B, 3) about (pos_ref, vel_ref)
+    kappa_corot: torch.Tensor  # (B,)
+    m_counterrot: torch.Tensor  # (B,) counter-rotating mass (or weight)
+
+
+def angular_momentum_and_kappa(
+    mass: torch.Tensor,  # (B, K)
+    pos: torch.Tensor,  # (B, K, 3) relative to the reference position
+    vel: torch.Tensor,  # (B, K, 3) relative to the reference velocity
+    mask: torch.Tensor,  # (B, K)
+) -> AngularMomentumResult:
+    """Weighted L, kappa_corot (Correa+2017) and counter-rotating weight:
+    kappa_corot is the co-rotating particles' sum of L_i^2 / (2 m_i R_i^2)
+    over the total kinetic energy, particles on the rotation axis
+    excluded (reference ``kinematic_properties.py:266-425``)."""
+    m = torch.where(mask, mass, 0.0)
+    Lpart = m[..., None] * torch.linalg.cross(pos, vel, dim=-1)
+    Ltot = torch.where(mask[..., None], Lpart, 0.0).sum(1)
+    Lnrm = torch.sqrt((Ltot * Ltot).sum(1))
+    vx, vy, vz = vel[..., 0], vel[..., 1], vel[..., 2]
+    K = 0.5 * (m * (vx * vx + vy * vy + vz * vz)).sum(1)
+    Ldir = Ltot / torch.clamp(Lnrm, min=1e-37)[:, None]
+    Li = (
+        Lpart[..., 0] * Ldir[:, None, 0]
+        + Lpart[..., 1] * Ldir[:, None, 1]
+        + Lpart[..., 2] * Ldir[:, None, 2]
+    )
+    px, py, pz = pos[..., 0], pos[..., 1], pos[..., 2]
+    r2 = px * px + py * py + pz * pz
+    rdotL = px * Ldir[:, None, 0] + py * Ldir[:, None, 1] + pz * Ldir[:, None, 2]
+    Ri2 = r2 - rdotL * rdotL
+    on_axis = Ri2 == 0.0
+    Krot = 0.5 * Li * Li / (torch.clamp(mass, min=1e-37) * torch.where(on_axis, 1.0, Ri2))
+    corot = mask & ~on_axis & (Li > 0.0)
+    Kcorot = torch.where(corot, Krot, 0.0).sum(1)
+    kappa = torch.where(
+        (Lnrm > 0.0) & (K > 0.0), Kcorot / torch.clamp(K, min=1e-37), 0.0
+    )
+    counter = mask & (Li < 0.0)
+    m_counter = torch.where(Lnrm > 0.0, torch.where(counter, mass, 0.0).sum(1), 0.0)
+    return AngularMomentumResult(Ltot, kappa, m_counter)
+
+
+def cylindrical_velocities(
+    pos: torch.Tensor,  # (B, K, 3) halo-relative positions
+    vel: torch.Tensor,  # (B, K, 3) frame-shifted velocities
+    L: torch.Tensor,  # (B, 3) the new z axis
+) -> torch.Tensor:
+    """(v_r, v_phi, v_z) per particle (B, K, 3) in the frame whose z axis
+    is L, x from a helper vector not parallel to it (reference
+    ``cylindrical_coordinates.py:13-93``)."""
+    Lnorm = torch.sqrt(torch.clamp((L * L).sum(1), min=1e-37))
+    z = L / Lnorm[:, None]
+    hx = torch.tensor([1.0, 0.0, 0.0], dtype=pos.dtype, device=pos.device)
+    hy = torch.tensor([0.0, 1.0, 0.0], dtype=pos.dtype, device=pos.device)
+    use_y = torch.abs((z * hx).sum(1)) > 0.9
+    helper = torch.where(use_y[:, None], hy, hx)
+    x = torch.linalg.cross(helper, z, dim=-1)
+    x = x / torch.sqrt(torch.clamp((x * x).sum(1), min=1e-37))[:, None]
+    y = torch.linalg.cross(z, x, dim=-1)
+    R = torch.stack([x, y, z], 1)  # (B, 3, 3): rows are the new axes
+    pr = torch.einsum("bkd,bnd->bkn", pos, R)
+    vr3 = torch.einsum("bkd,bnd->bkn", vel, R)
+    phi = torch.atan2(pr[..., 1], pr[..., 0])
+    c, s = torch.cos(phi), torch.sin(phi)
+    v_r = vr3[..., 0] * c + vr3[..., 1] * s
+    v_phi = -vr3[..., 0] * s + vr3[..., 1] * c
+    return torch.stack([v_r, v_phi, vr3[..., 2]], -1)
+
+
+def weighted_cylindrical_dispersion(
+    weights: torch.Tensor,  # (B, K)
+    v_cyl: torch.Tensor,  # (B, K, 3)
+    mask: torch.Tensor,  # (B, K)
+) -> torch.Tensor:
+    """[sigma_r, sigma_phi, sigma_z] (B, 3) about the weighted mean
+    (reference ``kinematic_properties.py:130-219``)."""
+    w = torch.where(mask, weights, 0.0)
+    wn = w / torch.clamp(w.sum(1), min=1e-37)[:, None]
+    mean = (wn[..., None] * v_cyl).sum(1)
+    var = (wn[..., None] * (v_cyl - mean[:, None, :]) ** 2).sum(1)
+    return torch.sqrt(var)
+
+
+def weighted_rotation_velocity(
+    weights: torch.Tensor, v_phi: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Weight-averaged azimuthal velocity (B,) (reference
+    ``kinematic_properties.py:35-51``)."""
+    w = torch.where(mask, weights, 0.0)
+    return (w * v_phi).sum(1) / torch.clamp(w.sum(1), min=1e-37)
 
 
 def spin_parameter(

@@ -5,11 +5,13 @@ Ported from ``soap_tpu/pipeline/engine.py`` (single chunk, one device):
     threshold and counts its candidate rows exactly with summed-area
     tables (``chunk_data.presize_and_count``);
  2. halos are sorted by candidate count and cut into tiles whose padded
-    rows stay within ``TARGET_ROWS``; each tile is one bucket call:
-    cell ranges -> run-length range gather (kernel K1) -> one radius
+    rows stay within ``row_budget`` (``TARGET_ROWS`` for DMO rows, less
+    for wider hydro rows); each tile is one bucket call: per particle
+    type cell ranges -> run-length range gather (kernel K1), with each
+    type's extra datasets as ``HaloParticles.fields`` -> one radius
     sort -> the lazy property DAG of every spec (the SO bisection,
     masked reductions, kinematics, half-mass radii, and the inertia
-    loop, kernel K2, once per spec family);
+    loop, kernel K2, once per spec family and kind of weights);
  3. halos whose candidate buffer overflowed, or whose properties need a
     bigger region, get their radius grown x1.5 and are re-bucketed until
     done or at the 20 Mpc cap.
@@ -50,7 +52,8 @@ from soap_tpu_torch.models.halo_slice import (
     compute_properties,
     shared_sort_artifacts,
 )
-from soap_tpu_torch.ops import geometry
+from soap_tpu_torch.ops import cpu_math, geometry
+from soap_tpu_torch.ops import range_gather
 from soap_tpu_torch.ops.grid import halo_cell_ranges
 from soap_tpu_torch.ops.range_gather import (
     merge_adjacent_ranges,
@@ -70,6 +73,14 @@ MAX_SEARCH_RADIUS = 20.0  # Mpc physical; reference halo_tasks.py:19-20
 #: engine, so both engines cut the same tiles
 TARGET_ROWS = 8 * 1024 * 1024
 MAX_BATCH = 4096
+#: bytes one bucket call may charge its rows, at 4 bytes x the widest
+#: type's row width x the largest family's lanes per padded row.  The
+#: charge tracks a hydro bucket's peak device memory (1M-row buckets of
+#: 128-column gas rows in 8 lanes peaked at 4.53 GiB on an H100 80GB at
+#: 700 W, PERF.md), so 24 GiB keeps a hydro bucket within an 80 GB card;
+#: a DMO bucket's 16 columns stay at TARGET_ROWS.  The JAX engine's
+#: B <= 64 cap and //5 budget were fitted to a 16 GB TPU and are not used
+ROW_BYTES_BUDGET = 24 * 2**30
 #: rows per block of the range gather (the JAX layout's S)
 GATHER_S = 64
 #: fixed apertures larger than this (Mpc) run in the wide pass; 0 runs
@@ -160,12 +171,42 @@ def _lanes(t: torch.Tensor, L: int) -> torch.Tensor:
     return t if L == 1 else t.repeat((L,) + (1,) * (t.dim() - 1))
 
 
+class _LaneFields(dict):
+    """A particle-field dict whose tensors are repeated L times along the
+    halo axis on first access: a family reads only some of a hydro
+    type's many datasets, and each copy costs L x its bytes."""
+
+    def __init__(self, fields: Dict[str, torch.Tensor], L: int):
+        super().__init__(fields)
+        self._L = L
+        self._done = set()
+
+    def __getitem__(self, name):
+        t = super().__getitem__(name)
+        if name not in self._done:
+            t = _lanes(t, self._L)
+            self[name] = t
+            self._done.add(name)
+        return t
+
+    def get(self, name, default=None):
+        return self[name] if name in self else default
+
+
+def _lanes_parts(parts: HaloParticles, L: int) -> HaloParticles:
+    if L == 1:
+        return parts
+    return HaloParticles(
+        *(_lanes(x, L) for x in parts[:-1]), fields=_LaneFields(parts.fields, L)
+    )
+
+
 def _family_slice(members, ctx, parts, scalars):
     """One slice over a family's L members x B halos: the particles and
     scalars repeated per member, each member's threshold density or
     aperture radius on its own B halos."""
     L, spec0 = len(members), members[0]
-    parts_l = HaloParticles(*(_lanes(x, L) for x in parts))
+    parts_l = _lanes_parts(parts, L)
     scalars_l = HaloScalars(*(_lanes(x, L) for x in scalars))
     values = [
         s.target_density(ctx) if spec0.kind == "SO" else s.aperture_radius_mpc
@@ -191,6 +232,26 @@ def _block_signature(spec: HaloTypeSpec, dens) -> Optional[tuple]:
     if spec.kind == "projected" and spec.radius_property is None:
         return ("projected", spec.keys, spec.axis)
     return None
+
+
+def _max_family(specs: Sequence[HaloTypeSpec], ctx: HaloContext) -> int:
+    """The most members any family (run of specs with one signature) has."""
+    best, run, prev = 1, 0, None
+    for spec in specs:
+        sig = _block_signature(spec, spec.target_density(ctx))
+        run = run + 1 if sig is not None and sig == prev else 1
+        prev = sig
+        best = max(best, run)
+    return best
+
+
+def row_budget(chunk: ChunkData, specs: Sequence[HaloTypeSpec], ctx: HaloContext) -> int:
+    """Padded rows (B x sum of the type capacities) one bucket call may
+    hold: ROW_BYTES_BUDGET over the widest type's row bytes times the
+    largest family's lanes, at most TARGET_ROWS (so a DMO run cuts the
+    JAX engine's tiles)."""
+    width = max(pt.row_width for pt in chunk.ptypes.values())
+    return min(TARGET_ROWS, ROW_BYTES_BUDGET // (4 * width * _max_family(specs, ctx)))
 
 
 def _spec_truncatable(spec: HaloTypeSpec) -> bool:
@@ -223,7 +284,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
     ctx_b = dataclasses.replace(ctx, capacities=(trunc,)) if trunc is not None else None
 
     def fn(parts: HaloParticles, scalars: HaloScalars):
-        shared = shared_sort_artifacts(parts, scalars, vel_payload=trunc is not None)
+        shared = shared_sort_artifacts(parts, scalars, ctx, vel_payload=trunc is not None)
         parts_b = shared_b = trunc_bad = None
         if trunc is not None:
             kb = trunc
@@ -238,6 +299,8 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                 groupnr=torch.where(bound_b, scalars.index[:, None], -1),
                 fofid=torch.full_like(bound_b, -1, dtype=torch.int64),
                 softening=parts.softening[:, :kb],
+                # one particle type with the base fields only: no extras
+                fields={},
             )
             shared_b = {
                 "radius": shared["_r_sorted"][:, :kb],
@@ -300,18 +363,27 @@ def _process_bucket(
     is_central: torch.Tensor,  # (B,) bool
     fof_id: torch.Tensor,  # (B,) i64
     trunc: Optional[int] = None,  # sorted-prefix row truncation
+    k1_by_ptype: Optional[Dict[str, int]] = None,  # K1 launches, added per ptype
 ):
-    """One padded bucket: range gather + every property calculation."""
+    """One padded bucket: range gather (one K1 call per particle type) +
+    every property calculation.  Each type's extra datasets ride along as
+    ``HaloParticles.fields['PartTypeN/<name>']``."""
     a = float(ctx.a)
     parts_per_type = []
+    fields: Dict[str, torch.Tensor] = {}
     overflow = torch.zeros(centre_hi.shape[0], dtype=torch.bool, device=centre_hi.device)
     for ptype, cap, cube in zip(ctx.ptypes, ctx.capacities, cubes):
         pt = chunk.ptypes[ptype]
+        if ptype == "PartType6" and pt.has_field("Weights"):
+            raise NotImplementedError("neutrino delta-f weights (PartType6) are not ported")
         starts, counts = halo_cell_ranges(
             pt.spec, pt.offsets, pt.counts, centre_hi, radius_com, cube
         )
         starts, counts = merge_adjacent_ranges(starts, counts)
+        n_k1 = range_gather.launches
         gf, valid, _, total = range_gather_rows(pt.packed, starts, counts, S, cap)
+        if k1_by_ptype is not None:
+            k1_by_ptype[ptype] = k1_by_ptype.get(ptype, 0) + range_gather.launches - n_k1
         overflow = overflow | (total > cap)
 
         def fld(name):
@@ -342,11 +414,14 @@ def _process_bucket(
                 softening=soft,
             )
         )
+        for col in pt.cols_f + pt.cols_i:
+            if col[0] not in _BASE_FIELDS:
+                fields[f"{ptype}/{col[0]}"] = fld(col[0])
 
     def cat(key):
         return torch.cat([p[key] for p in parts_per_type], 1)
 
-    parts = HaloParticles(*(cat(k) for k in HaloParticles._fields))
+    parts = HaloParticles(*(cat(k) for k in HaloParticles._fields[:-1]), fields=fields)
     scalars = HaloScalars(
         index=index,
         centre=centre_hi + centre_lo,
@@ -358,6 +433,24 @@ def _process_bucket(
     for res in out.values():
         res["__needs_bigger__"] = res["__needs_bigger__"] & ~overflow
     return out, overflow
+
+
+def _to_host(out: Dict[str, Dict[str, torch.Tensor]], nb: int):
+    """Every result's first ``nb`` halos as numpy arrays, through one
+    device-to-host copy per dtype (thousands of keys per hydro bucket)."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for grp, d in out.items():
+        for k, v in d.items():
+            by_dtype.setdefault(v.dtype, []).append((grp, k, v[:nb]))
+    res: Dict[str, Dict[str, np.ndarray]] = {grp: {} for grp in out}
+    for items in by_dtype.values():
+        host = torch.cat([v.reshape(nb, -1) for _, _, v in items], 1).cpu().numpy()
+        col = 0
+        for grp, k, v in items:
+            w = int(np.prod(v.shape[1:], dtype=np.int64))
+            res[grp][k] = host[:, col : col + w].reshape(v.shape)
+            col += w
+    return res
 
 
 def _next_pow2(n: int, floor: int = 256) -> int:
@@ -421,6 +514,8 @@ class EngineStats:
     n_truncated_tiles: int = 0
     #: bucket calls by pass: 'narrow', 'wide', or 'one' (no split)
     bucket_calls_by_pass: Dict[str, int] = field(default_factory=dict)
+    #: launches of the range-gather kernel (K1) by particle type
+    k1_launches_by_ptype: Dict[str, int] = field(default_factory=dict)
     #: wall seconds from each bucket's dispatch to its results on the
     #: host (device compute + transfers), summed
     compute_seconds: float = 0.0
@@ -444,6 +539,10 @@ class HaloEngine:
                 )
         for spec in specs:
             _check_spec(spec)
+        if self.device.type == "cpu":
+            # a process's first threaded vector-math call can come back
+            # inexact: make the first one on one thread, before any bucket
+            cpu_math.prime()
         self.ctx_base = ctx_base
         self.chunk = chunk
         self.specs = tuple(specs)
@@ -646,15 +745,16 @@ class HaloEngine:
             def caps_sum(maxes):
                 return sum(_next_pow2(int(m) + 8, 128) for m in maxes.values())
 
+            budget = row_budget(self.chunk, specs, ctx0)
             plans = []
             pos = 0
             while pos < n:
                 n_sel = 1
                 maxes = {pt: typemax[pt][pos] for pt in ctx0.ptypes}
-                bq, tile_budget = 8, TARGET_ROWS
-                if bq * caps_sum(maxes) >= TARGET_ROWS:
+                bq, tile_budget = 8, budget
+                if bq * caps_sum(maxes) >= budget:
                     # giant-halo tile: no 8-lane floor, half the budget
-                    bq, tile_budget = 1, TARGET_ROWS // 2
+                    bq, tile_budget = 1, budget // 2
                 while pos + n_sel < n and n_sel < MAX_BATCH:
                     cand = {
                         pt: max(maxes[pt], typemax[pt][pos + n_sel])
@@ -753,12 +853,9 @@ class HaloEngine:
                     ctx, pl["specs"], pl["cubes"], pl["S"], self.chunk,
                     *(self._tensor(x) for x in
                       (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof)),
-                    pl["trunc"],
+                    pl["trunc"], self.stats.k1_launches_by_ptype,
                 )
-                out = {
-                    grp: {k: v[:nb].cpu().numpy() for k, v in d.items()}
-                    for grp, d in out.items()
-                }
+                out = _to_host(out, nb)
                 ov = overflow[:nb].cpu().numpy()
                 self.stats.compute_seconds += time.perf_counter() - t0
                 self.stats.n_bucket_calls += 1

@@ -1,11 +1,15 @@
-"""Seeded in-memory mock DMO universes (NFW halos in a uniform field).
+"""Seeded in-memory mock universes (NFW halos in a uniform field, with
+gas, stars and black holes when ``hydro``).
 
 A numpy-only copy of ``soap_tpu.utils.mock_data``'s universe generator
 (``MockUniverse``, ``build_mock_universe``, ``_sample_nfw_radii`` and the
-unit constants): the port must run where neither JAX nor h5py is
-installed, so it cannot import the original.  The file writers stay in
-the JAX package.  ``tests/test_torch_host_mirror.py`` holds this copy to
-the original: the same seed gives byte-identical arrays.
+unit constants) and of the metadata its snapshot writer records (the
+datasets' units, the named columns, the header values), as plain
+values: the port must run where neither JAX nor h5py is installed, so
+it cannot import the original, and builds its inputs in memory.  The
+file writers stay in the JAX package.  ``tests/test_torch_host_mirror.py``
+holds this copy to the original: the same seed gives byte-identical
+arrays, and the metadata equals what the written snapshot holds.
 """
 
 from __future__ import annotations
@@ -402,3 +406,108 @@ def build_mock_universe(
         fof_ids=fof,
         extra_ptypes=extra_ptypes,
     )
+
+
+# ---- the mock snapshot's metadata, as values (the JAX package's writer
+# stores them in the HDF5 file; the port builds its inputs from them) ----
+
+#: dataset name -> unit exponents (length, mass, time, temperature,
+#: current), a-scale exponent and "stored physical" flag of the mock's
+#: particle datasets; every conversion factor to snapshot units is 1
+_FIELD_UNITS = {
+    "Coordinates": dict(l=1.0, a_exp=1.0),
+    "Velocities": dict(l=1.0, t=-1.0),
+    "Masses": dict(m=1.0),
+    "InitialMasses": dict(m=1.0),
+    "SubgridMasses": dict(m=1.0),
+    "DynamicalMasses": dict(m=1.0),
+    "ParticleIDs": dict(),
+    "FOFGroupIDs": dict(),
+    "Temperatures": dict(temp=1.0, physical=True),
+    "StarFormationRates": dict(m=1.0, t=-1.0, physical=True),
+    "AccretionRates": dict(m=1.0, t=-1.0, physical=True),
+    "MetalMassFractions": dict(),
+    "TotalDustMassFractions": dict(),
+    "BirthScaleFactors": dict(),
+    "Luminosities": dict(),
+    "LastAGNFeedbackScaleFactors": dict(),
+    "ElementMassFractions": dict(),
+    "SpeciesFractions": dict(),
+    "ElementMassFractionsDiffuse": dict(),
+    "DustMassFractions": dict(),
+    "Densities": dict(m=1.0, l=-3.0, a_exp=-3.0),
+    "InternalEnergies": dict(l=2.0, t=-2.0, physical=True),
+    "Pressures": dict(m=1.0, l=-1.0, t=-2.0, physical=True),
+}
+
+#: named-column labels of the mock's multi-column datasets (SWIFT's
+#: SubgridScheme/NamedColumns)
+NAMED_COLUMNS = {
+    "ElementMassFractions": [
+        "Hydrogen", "Helium", "Carbon", "Nitrogen", "Oxygen",
+        "Neon", "Magnesium", "Silicon", "Iron",
+    ],
+    "SpeciesFractions": ["elec", "HI", "HII", "H2", "H2p"],
+    "ElementMassFractionsDiffuse": [
+        "Hydrogen", "Helium", "Carbon", "Nitrogen", "Oxygen",
+        "Neon", "Magnesium", "Silicon", "Iron",
+    ],
+    "DustMassFractions": [
+        "GraphiteLarge", "MgSilicatesLarge", "FeSilicatesLarge",
+        "GraphiteSmall", "MgSilicatesSmall", "FeSilicatesSmall",
+    ],
+    "Luminosities": [
+        "GAMA_u", "GAMA_g", "GAMA_r", "GAMA_i", "GAMA_z",
+        "GAMA_Y", "GAMA_J", "GAMA_H", "GAMA_K",
+    ],
+}
+
+#: the run parameters the mock snapshot records: softenings (Mpc) and the
+#: AGN heating temperature (K) behind the recently-heated gas filter
+MOCK_PARAMETERS = {
+    "Gravity:comoving_DM_softening": 0.02,
+    "Gravity:max_physical_DM_softening": 0.01,
+    "Gravity:comoving_baryon_softening": 0.01,
+    "Gravity:max_physical_baryon_softening": 0.005,
+    "EAGLEAGN:AGN_delta_T_K": 3.16228e7,
+}
+
+
+def snapshot_attrs(uni: MockUniverse) -> Dict[str, Dict[str, float]]:
+    """The header groups of the universe's mock snapshot, as plain values:
+    ``Cosmology``, ``Units`` (snapshot and code units are the same),
+    ``PhysicalConstants/CGS`` and ``PhysicalConstants/InternalUnits``."""
+    rho_crit0 = 3.0 * (100.0 * uni.h) ** 2 / (8.0 * np.pi * G_INTERNAL)
+    E2 = uni.omega_m / uni.a**3 + uni.omega_lambda
+    return {
+        "Cosmology": {
+            "Scale-factor": uni.a,
+            "Redshift": 1.0 / uni.a - 1.0,
+            "h": uni.h,
+            "H0 [internal units]": 100.0 * uni.h,
+            "H [internal units]": 100.0 * uni.h * np.sqrt(E2),
+            "Critical density [internal units]": rho_crit0 * E2,
+            "Omega_m": uni.omega_m,
+            "Omega_lambda": uni.omega_lambda,
+            "Omega_k": 0.0,
+            "Omega_b": uni.omega_b,
+            "Omega_cdm": uni.omega_m - uni.omega_b,
+            "Omega_r": 0.0,
+            "Omega_nu_0": 0.0,
+            "w_0": -1.0,
+            "w_a": 0.0,
+        },
+        "Units": {
+            "Unit length in cgs (U_L)": MPC_CM,
+            "Unit mass in cgs (U_M)": UNIT_MASS_G,
+            "Unit time in cgs (U_t)": UNIT_TIME_S,
+            "Unit temperature in cgs (U_T)": 1.0,
+            "Unit current in cgs (U_I)": 1.0,
+        },
+        "PhysicalConstants/CGS": {
+            "newton_G": 6.67430e-8,
+            "parsec": 3.08567758149e18,
+            "solar_mass": MSUN_G,
+        },
+        "PhysicalConstants/InternalUnits": {"newton_G": G_INTERNAL},
+    }

@@ -21,6 +21,7 @@ from soap_tpu.pipeline.engine import HaloEngine as JaxEngine
 from soap_tpu.pipeline.engine import HaloTypeSpec as JaxSpec
 from soap_tpu.utils import mock_data
 from soap_tpu_torch.models.context import HaloContext
+from soap_tpu_torch.pipeline import chunk_data as tcd
 from soap_tpu_torch.pipeline.chunk_data import chunk_from_numpy
 from soap_tpu_torch.pipeline.engine import HaloEngine, HaloTypeSpec
 from soap_tpu_torch.pipeline.specs import slice_specs
@@ -115,10 +116,23 @@ def test_satellites_get_no_so_values(runs):
 def test_unported_keys_and_specs_raise(runs):
     ctx = HaloContext(**runs["ctx_kw"])
     chunk = chunk_from_numpy(runs["jchunk"], torch.device("cpu"))
-    # a hydro key: the port implements the DMO keys only
-    bad_key = [HaloTypeSpec(kind="bound", group="BoundSubhalo", keys=("Mtot", "Mgas"))]
-    with pytest.raises(NotImplementedError, match="Mgas"):
+    # a key the bound subhalo's slice has no method for (an SO key)
+    bad_key = [HaloTypeSpec(kind="bound", group="BoundSubhalo", keys=("Mtot", "DopplerB"))]
+    with pytest.raises(NotImplementedError, match="DopplerB"):
         HaloEngine(ctx, chunk, bad_key, "cpu").process(**runs["args"])
+    # neutrinos with delta-f weights
+    pt = chunk.ptypes["PartType1"]
+    nu = tcd.stage_ptype(
+        np.random.default_rng(3).uniform(0, 25.0, (500, 3)),
+        {"Masses": np.full(500, 0.01, np.float32),
+         "Velocities": np.zeros((500, 3), np.float32),
+         "Weights": np.ones(500, np.float32)},
+        25.0, torch.device("cpu"), resolution=pt.spec.dims[0],
+    )
+    nu_ctx = dataclasses.replace(ctx, ptypes=("PartType1", "PartType6"), softening=(0.01, 0.01))
+    nu_chunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": pt, "PartType6": nu})
+    with pytest.raises(NotImplementedError, match="PartType6"):
+        HaloEngine(nu_ctx, nu_chunk, slice_specs(), "cpu").process(**runs["args"])
     core_excised = [HaloTypeSpec(kind="SO", group="SO/500_crit_ce", keys=("Mtot",),
                                  so_type="crit", so_multiple=500.0,
                                  core_excision_fraction=0.15, centrals_only=True)]

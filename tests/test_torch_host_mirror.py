@@ -64,9 +64,14 @@ def test_unit_constants_match():
         assert getattr(torch_mock, name) == getattr(jax_mock, name), name
 
 
+def _same_array(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert a.tobytes() == b.tobytes(), what
+
+
 @pytest.mark.parametrize("seed", [7, 11])
-def test_mock_universe_byte_identical(seed):
-    kw = dict(n_halos=6, n_field=3000, boxsize=20.0, seed=seed, n_satellites=2)
+def test_mock_universe_byte_identical(seed, hydro=False):
+    kw = dict(n_halos=6, n_field=3000, boxsize=20.0, seed=seed, n_satellites=2, hydro=hydro)
     ours = torch_mock.build_mock_universe(**kw)
     theirs = jax_mock.build_mock_universe(**kw)
     for f in dataclasses.fields(theirs):
@@ -75,11 +80,22 @@ def test_mock_universe_byte_identical(seed):
             assert len(a) == len(b)
             for x, y in zip(a, b):
                 assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        elif f.name == "extra_ptypes" and hydro:
+            assert list(a) == list(b) == ["PartType0", "PartType4", "PartType5"]
+            for pt in b:
+                assert list(a[pt]) == list(b[pt]), pt
+                for name in b[pt]:
+                    _same_array(np.asarray(a[pt][name]), np.asarray(b[pt][name]), f"{pt}/{name}")
         elif isinstance(b, np.ndarray):
             assert a.dtype == b.dtype and a.shape == b.shape, f.name
             assert a.tobytes() == b.tobytes(), f.name
         else:
             assert a == b, f.name
+
+
+@pytest.mark.parametrize("seed", [7, 11])
+def test_hydro_mock_universe_byte_identical(seed):
+    test_mock_universe_byte_identical(seed, hydro=True)
 
 
 def test_port_imports_no_jax_soap_tpu_or_h5py():
@@ -88,8 +104,12 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "import soap_tpu_torch.pipeline.engine, soap_tpu_torch.ops.inertia_loop\n"
         "import soap_tpu_torch.pipeline.specs, soap_tpu_torch.utils.mock_data\n"
         "import soap_tpu_torch.ops.kinematics, soap_tpu_torch.core.registry\n"
+        "import soap_tpu_torch.pipeline.run, soap_tpu_torch.pipeline.chunks\n"
+        "import soap_tpu_torch.models.chemistry, soap_tpu_torch.core.cosmology\n"
         "specs = soap_tpu_torch.pipeline.specs.build_specs(None, True, 100.0)\n"
         "assert sum(len(s.keys) for s in specs) == 508\n"
+        "specs = soap_tpu_torch.pipeline.specs.build_specs(None, False, 100.0)\n"
+        "assert sum(len(s.keys) for s in specs) == 4729\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
@@ -116,15 +136,25 @@ def test_property_data_mirrors_original():
     ours = _json("soap_tpu_torch.core", "property_table.json")["properties"]
     assert list(ours) == list(theirs)
     for key, e in theirs.items():
-        assert ours[key] == {"name": e["name"], "dmo_property": e["dmo_property"]}, key
+        assert ours[key] == {
+            "name": e["name"], "dmo_property": e["dmo_property"],
+            "particle_properties": e["particle_properties"],
+        }, key
 
 
 @pytest.mark.parametrize(
     "halo_type", ["BoundSubhalo", "SO", "Aperture", "ProjectedAperture"]
 )
-def test_implemented_dmo_keys_match(halo_type):
-    ours = torch_halo_types.implemented_keys_for(halo_type, True)
-    assert ours and ours == jax_halo_types.implemented_keys_for(halo_type, True)
+def test_implemented_dmo_keys_match(halo_type, dmo=True):
+    ours = torch_halo_types.implemented_keys_for(halo_type, dmo)
+    assert ours and ours == jax_halo_types.implemented_keys_for(halo_type, dmo)
+
+
+@pytest.mark.parametrize(
+    "halo_type", ["BoundSubhalo", "SO", "Aperture", "ProjectedAperture"]
+)
+def test_implemented_hydro_keys_match(halo_type):
+    test_implemented_dmo_keys_match(halo_type, dmo=False)
 
 
 def test_build_specs_matches_original():
@@ -134,3 +164,91 @@ def test_build_specs_matches_original():
     assert (len(ours), sum(len(s.keys) for s in ours)) == (38, 508)
     with pytest.raises(NotImplementedError, match="parameter files"):
         torch_specs.build_specs(object(), True, 123.5)
+    ours = torch_specs.build_specs(None, False, 123.5)
+    theirs = jax_specs.build_specs(None, False, 123.5)
+    assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in theirs]
+    assert (len(ours), sum(len(s.keys) for s in ours)) == (38, 4729)
+
+
+def test_mock_metadata_values_match():
+    assert torch_mock._FIELD_UNITS == jax_mock._FIELD_UNITS
+    assert torch_mock.NAMED_COLUMNS == jax_mock.NAMED_COLUMNS
+
+
+@pytest.fixture(scope="module")
+def written_hydro_mock(tmp_path_factory):
+    """A hydro mock written by the JAX package (snapshot, HBT catalogue,
+    membership) and read back as its ``SnapshotMetadata``."""
+    from soap_tpu.io.swift_snapshot import SnapshotMetadata
+    from soap_tpu.pipeline.membership import run_group_membership
+
+    tmp = str(tmp_path_factory.mktemp("hydro_mock"))
+    kw = dict(n_halos=5, n_field=2000, boxsize=16.0, seed=61, hydro=True, n_satellites=1)
+    sim = jax_mock.make_mock_simulation(tmp, **kw)
+    mem = os.path.join(tmp, "membership.hdf5")
+    run_group_membership(sim["snapshot"], sim["hbt_basename"], mem)
+    return dict(
+        uni=torch_mock.build_mock_universe(**kw), snapshot=sim["snapshot"], membership=mem,
+        meta=SnapshotMetadata(sim["snapshot"], [mem]),
+    )
+
+
+def test_snapshot_attrs_match_written_snapshot(written_hydro_mock):
+    import h5py
+
+    attrs = torch_mock.snapshot_attrs(written_hydro_mock["uni"])
+    with h5py.File(written_hydro_mock["snapshot"], "r") as f:
+        for group, values in attrs.items():
+            stored = {k: float(np.asarray(v).reshape(-1)[0]) for k, v in f[group].attrs.items()}
+            assert values == stored, group
+        for name, value in torch_mock.MOCK_PARAMETERS.items():
+            assert float(f["Parameters"].attrs[name]) == value, name
+
+
+def test_mock_metadata_matches_snapshot_metadata(written_hydro_mock):
+    from soap_tpu_torch.pipeline import run as torch_run
+
+    theirs = written_hydro_mock["meta"]
+    ours = torch_run.mock_metadata(written_hydro_mock["uni"])
+    for name in ("a", "z", "h", "boxsize", "critical_density", "mean_density", "virBN98",
+                 "dark_matter_softening", "baryon_softening", "nu_softening", "AGN_delta_T",
+                 "cosmology_attrs", "snap_units_cgs", "constants_cgs", "named_columns",
+                 "ptypes"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert dataclasses.asdict(ours.cosmology) == dataclasses.asdict(theirs.cosmology)
+    np.testing.assert_array_equal(ours.observer_position, theirs.observer_position)
+    assert {pt: sorted(d) for pt, d in ours.datasets.items()} == {
+        pt: sorted(d) for pt, d in theirs.datasets.items()
+    }
+    for pt, d in theirs.datasets.items():
+        assert {n: info.row_shape for n, info in d.items()} == ours.datasets[pt], pt
+
+
+def test_cosmology_matches(written_hydro_mock):
+    from soap_tpu_torch.core.cosmology import Cosmology
+
+    theirs = written_hydro_mock["meta"].cosmology
+    ours = Cosmology.from_attrs(written_hydro_mock["meta"].cosmology_attrs)
+    a = np.linspace(0.05, 1.0, 7)
+    np.testing.assert_array_equal(ours.E(a), theirs.E(a))
+    for x, y in zip(ours.age_table(n=64), theirs.age_table(n=64)):
+        np.testing.assert_array_equal(x, y)
+    assert ours.bn98_virial_multiple() == theirs.bn98_virial_multiple()
+
+
+@pytest.mark.parametrize("dmo", [True, False], ids=["dmo", "hydro"])
+def test_make_context_and_required_datasets_match(written_hydro_mock, dmo):
+    from soap_tpu.pipeline.chunks import required_datasets as jax_required
+    from soap_tpu.pipeline.run import make_context as jax_make_context
+    from soap_tpu_torch.pipeline import chunks as torch_chunks
+    from soap_tpu_torch.pipeline import run as torch_run
+
+    theirs = written_hydro_mock["meta"]
+    ours = torch_run.mock_metadata(written_hydro_mock["uni"])
+    ptypes = ["PartType1"] if dmo else ["PartType0", "PartType1", "PartType4", "PartType5"]
+    assert dataclasses.asdict(torch_run.make_context(ours, ptypes, dmo)) == \
+        dataclasses.asdict(jax_make_context(theirs, ptypes, dmo))
+    specs = torch_specs.build_specs(None, dmo, ours.virBN98)
+    got = torch_chunks.required_datasets(specs, ours)
+    assert got == jax_required(jax_specs.build_specs(None, dmo, theirs.virBN98), theirs)
+    assert ("Temperatures" in got.get("PartType0", ())) != dmo

@@ -245,3 +245,98 @@ def test_single_pass_matches_jax(seed):
             *(torch.from_numpy(x.copy()) for x in (w, pos, masks, R)), c["red"],
             [True] * 4, single_pass=True,
         )
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_luminosity_bands_match_jax_per_config_weights(seed):
+    """The luminosity-weighted route: each band's weights through one loop
+    call with the bands on the halo axis, against the JAX function given
+    (bands x configs, K) per-config weights (its XLA loop: per-config
+    weights never take the Pallas kernel); rtol 2e-5, atol 1e-7 max."""
+    c = _sorted_cloud(seed)
+    rng = np.random.default_rng(seed)
+    NB, K = 9, len(c["w"])
+    lum = (10.0 ** rng.uniform(6.0, 9.0, (2, K, NB))).astype(np.float32)
+    pos = np.stack([c["pos"], 1.5 * c["pos"]])
+    masks = np.stack([c["masks"]] * 2)
+    R = np.stack([c["R"], 1.5 * c["R"]])
+    search = np.array([10.0, 0.5 * R[1].max()], np.float32)  # halo 1 needs more
+    check = [True, False, True]
+    ours = tI.inertia_tensor_bands(
+        torch.from_numpy(lum.transpose(0, 2, 1).copy()), torch.from_numpy(pos),
+        torch.from_numpy(masks.copy()), torch.from_numpy(R), c["red"], c["it"],
+        search_radius=torch.from_numpy(search), check_search=check,
+        rows_radius_sorted=True,
+    )
+    C = masks.shape[1]
+    for b in range(2):
+        res = jI.inertia_tensor_multi(
+            jnp.asarray(np.repeat(lum[b].T, C, axis=0)),  # band-major rows
+            jnp.asarray(pos[b]), jnp.asarray(np.tile(masks[b], (NB, 1))),
+            jnp.asarray(np.tile(R[b], NB)), np.tile(c["red"], NB), np.tile(c["it"], NB),
+            search_radius=jnp.float32(search[b]), check_search=np.tile(check, NB),
+            rows_radius_sorted=True,
+        )
+        t_j, found_j, nb_j = (np.asarray(x).reshape((NB, C) + np.shape(x)[1:]) for x in res)
+        np.testing.assert_array_equal(ours.found[b].numpy(), found_j)
+        np.testing.assert_array_equal(ours.needs_bigger[b].numpy(), nb_j)
+        np.testing.assert_allclose(
+            ours.tensor[b].numpy(), t_j, rtol=2e-5, atol=1e-7 * np.abs(t_j).max()
+        )
+    assert ours.needs_bigger[1].any() and not ours.needs_bigger[0].any()
+
+
+def _jax_projected(w, pos2d, masks, R, red, it, single_pass):
+    res = jI.projected_inertia_tensor_multi(
+        jnp.asarray(w), jnp.asarray(pos2d), jnp.asarray(masks), jnp.asarray(R),
+        np.asarray(red), np.asarray(it), single_pass=single_pass,
+    )
+    return [np.asarray(x) for x in res]
+
+
+@pytest.mark.parametrize("per_config", [False, True], ids=["shared", "per-config"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_projected_inertia_matches_jax(seed, per_config):
+    """2D tensors of 3 halos against the JAX loop per halo, shared and
+    per-config weights, iterative and single-pass; rtol 2e-5, atol 1e-7
+    of the largest component."""
+    c = _triaxial(seed)
+    pos2d = np.stack([c["pos"][:, :2], 2.0 * c["pos"][:, 1:], -c["pos"][:, ::2]])
+    C, K = c["masks"].shape
+    rng = np.random.default_rng(seed)
+    w = rng.lognormal(0.0, 0.3, (3, C, K) if per_config else (3, K)).astype(np.float32)
+    masks = np.stack([c["masks"], c["masks"], c["masks"][::-1]])
+    R = np.stack([c["R"], 2.0 * c["R"], c["R"]])
+    for single_pass in (False, True):
+        it = [False] * C if single_pass else c["it"]
+        ours = tI.projected_inertia_tensor_multi(
+            torch.from_numpy(w), torch.from_numpy(pos2d.copy()),
+            torch.from_numpy(masks.copy()), torch.from_numpy(R), c["red"], it,
+            single_pass=single_pass,
+        )
+        for b in range(3):
+            t_j, found_j, _ = _jax_projected(w[b], pos2d[b], masks[b], R[b], c["red"], it,
+                                             single_pass)
+            np.testing.assert_array_equal(ours.found[b].numpy(), found_j)
+            np.testing.assert_allclose(
+                ours.tensor[b].numpy(), t_j, rtol=2e-5, atol=1e-7 * np.abs(t_j).max()
+            )
+
+
+@pytest.mark.parametrize("name,make,seed,rows_radius_sorted", CASES, ids=CASE_IDS)
+def test_sphere_moments_equal_the_loops_first_iteration(name, make, seed, rows_radius_sorted):
+    """The single-pass configs' function against the plain loop limited to
+    one iteration, on the same packed arguments: rtol 1e-6."""
+    c = make(seed)
+    pos = np.stack([c["pos"], 2.0 * c["pos"]])
+    masks = np.stack([c["masks"], c["masks"][::-1]])
+    R = np.stack([c["R"], 2.0 * c["R"]])
+    args, _ = tI.pack_inertia_inputs(
+        torch.from_numpy(np.stack([c["w"]] * 2)), torch.from_numpy(pos),
+        torch.from_numpy(masks.copy()), torch.from_numpy(R), c["red"],
+        [False] * len(c["red"]),
+    )
+    np.testing.assert_allclose(
+        tI.sphere_moments(*args).numpy(), tloop.inertia_loop_plain(*args).numpy(),
+        rtol=1e-6, atol=0.0,
+    )

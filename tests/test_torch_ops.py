@@ -250,3 +250,151 @@ def test_kinematics(seed):
 def _close_vmax(ours, theirs):
     _close(ours.radius, theirs.radius)
     _close(ours.vmax_sq_over_G, theirs.vmax_sq_over_G)
+
+
+def _particles(seed, B=5, K=300):
+    rng = np.random.default_rng(seed)
+    mass = rng.lognormal(0.0, 0.4, (B, K)).astype(np.float32)
+    pos = rng.normal(0.0, 1.0, (B, K, 3)).astype(np.float32)
+    vel = (rng.normal(0.0, 50.0, (B, K, 3)) + 80.0 * np.cross([0, 0, 1.0], pos)).astype(np.float32)
+    mask = rng.random((B, K)) < 0.8
+    mask[-1] = False  # a halo with nothing selected
+    return mass, pos, vel, mask
+
+
+def _torch(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_angular_momentum_and_kappa(seed):
+    """Sums of products with cancellation: atol 1e-6 x sum of |terms|."""
+    mass, pos, vel, mask = _particles(seed)
+    theirs = jax.vmap(jkin.angular_momentum_and_kappa)(mass, pos, vel, mask)
+    ours = tkin.angular_momentum_and_kappa(*_torch(mass, pos, vel, mask))
+    scale = (mass[..., None] * np.abs(pos) * np.abs(vel)).sum(1).max()
+    _close(ours.L, theirs.L, atol=1e-6 * scale)
+    _close(ours.kappa_corot, theirs.kappa_corot, atol=1e-6)
+    _close(ours.m_counterrot, theirs.m_counterrot, atol=1e-6 * mass.sum(1).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cylindrical_velocities_and_dispersions(seed):
+    """Rotations through atan2 and the frame: atol 1e-4 x the speed scale."""
+    mass, pos, vel, mask = _particles(seed)
+    L = np.array(jax.vmap(jkin.angular_momentum)(mass, pos, vel, mask))
+    L[1] = [1e-3, 0.0, 0.0]  # z nearly along x: the helper switches to y
+    theirs = jax.vmap(jkin.cylindrical_velocities)(pos, vel, L)
+    tp, tv, tL, tm, tmask = _torch(pos, vel, L, mass, mask)
+    ours = tkin.cylindrical_velocities(tp, tv, tL)
+    vscale = np.abs(vel).max()
+    _close(ours, theirs, atol=1e-4 * vscale)
+    v_cyl = np.array(theirs)
+    tcyl = torch.from_numpy(v_cyl)
+    _close(
+        tkin.weighted_cylindrical_dispersion(tm, tcyl, tmask),
+        jax.vmap(jkin.weighted_cylindrical_dispersion)(mass, v_cyl, mask),
+        atol=1e-5 * vscale,
+    )
+    _close(
+        tkin.weighted_rotation_velocity(tm, tcyl[..., 1], tmask),
+        jax.vmap(jkin.weighted_rotation_velocity)(mass, v_cyl[..., 1], mask),
+        atol=1e-5 * vscale,
+    )
+
+
+#: the chemistry keys whose floors and half-mass radii the test holds
+CHEM_KEYS = (
+    "LogarithmicMassWeightedDiffuseOxygenOverHydrogenOfGasLowLimit",
+    "LogarithmicMassWeightedDiffuseOxygenOverHydrogenOfGasHighLimit",
+    "LogarithmicMassWeightedDiffuseNitrogenOverOxygenOfGasLowLimit",
+    "LogarithmicMassWeightedDiffuseOxygenOverHydrogenOfAtomicGasLowLimit",
+    "LogarithmicMassWeightedIronOverHydrogenOfStarsLowLimit",
+    "LogarithmicMassWeightedIronOverHydrogenOfStarsHighLimit",
+    "LogarithmicMassWeightedMagnesiumOverHydrogenOfStarsLowLimit",
+    "LinearMassWeightedIronOverHydrogenOfStars",
+    "HalfMassRadiusAtomicHydrogen",
+    "HalfMassRadiusMolecularHydrogen",
+    "AtomicHydrogenMass",
+    "MolecularHydrogenMass",
+)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chemistry_floors_and_hydrogen_radii(seed):
+    """Gas and star abundance ratios straddling their solar-relative
+    floors, and the HI/H2 half-mass radii (the port's on the shared sort's
+    weight payloads, the JAX slice's on its own sort): rtol 1e-5."""
+    from soap_tpu.models import halo_slice as jhs
+    from soap_tpu.models.context import HaloContext as JaxContext
+    from soap_tpu_torch.models import halo_slice as ths
+    from soap_tpu_torch.models.context import HaloContext as TorchContext
+    from soap_tpu_torch.pipeline.run import DEFAULT_CONSTANTS
+    from soap_tpu_torch.utils.mock_data import NAMED_COLUMNS
+
+    rng = np.random.default_rng(seed)
+    B, caps = 4, (96, 64, 64)
+    K = sum(caps)
+    ptypes = ("PartType0", "PartType1", "PartType4")
+    ctx_kw = dict(
+        a=0.8, z=0.25, G=43.0, boxsize=20.0, critical_density=10.0, mean_density=3.0,
+        ptypes=ptypes, capacities=caps, softening=(0.005, 0.01, 0.005), dmo=False,
+        constants=tuple(sorted(DEFAULT_CONSTANTS.items())),
+        named_columns=tuple(
+            (f"{pt}/{ds}", tuple(NAMED_COLUMNS[ds]))
+            for ds, pt in (("ElementMassFractions", "PartType0"),
+                           ("ElementMassFractionsDiffuse", "PartType0"),
+                           ("SpeciesFractions", "PartType0"),
+                           ("ElementMassFractions", "PartType4"))
+        ),
+    )
+    valid = rng.random((B, K)) < 0.9
+    groupnr = np.where(rng.random((B, K)) < 0.85, np.arange(B)[:, None], -1)
+    mass = np.where(valid, rng.lognormal(0.0, 0.3, (B, K)), 0.0).astype(np.float32)
+    pos = np.where(valid[..., None], rng.normal(0, 0.2, (B, K, 3)), 0.0).astype(np.float32)
+    vel = np.where(valid[..., None], rng.normal(0, 30, (B, K, 3)), 0.0).astype(np.float32)
+
+    def elements(n):
+        e = rng.uniform(0.0, 0.01, (B, n, 9)).astype(np.float32)
+        e[..., 0] = 0.74
+        # oxygen, nitrogen, iron and magnesium from far below to above the
+        # floors (1e-4 and 1e-3 x solar)
+        for col in (3, 4, 6, 8):
+            e[..., col] = 10.0 ** rng.uniform(-12.0, -2.0, (B, n))
+        return e
+
+    sp = rng.uniform(0.0, 0.4, (B, caps[0], 5)).astype(np.float32)
+    fields = {
+        "PartType0/ElementMassFractions": elements(caps[0]),
+        "PartType0/ElementMassFractionsDiffuse": elements(caps[0]),
+        "PartType0/SpeciesFractions": sp,
+        "PartType0/Temperatures": (10.0 ** rng.uniform(3.0, 5.0, (B, caps[0]))).astype(np.float32),
+        "PartType0/Densities": (10.0 ** rng.uniform(4.0, 7.0, (B, caps[0]))).astype(np.float32),
+        "PartType4/ElementMassFractions": elements(caps[2]),
+    }
+    base = dict(valid=valid, mass=mass, pos=pos, vel=vel, groupnr=groupnr.astype(np.int64),
+                fofid=np.full((B, K), -1, np.int64),
+                softening=np.full((B, K), 0.005, np.float32))
+    sc = dict(index=np.arange(B, dtype=np.int64), centre=np.zeros((B, 3), np.float32),
+              search_radius=np.ones(B, np.float32), is_central=np.ones(B, bool),
+              fof_id=np.arange(B, dtype=np.int64))
+
+    jctx = JaxContext(**ctx_kw)
+    jparts = jhs.HaloParticles(**{k: jnp.asarray(v) for k, v in base.items()},
+                               fields={k: jnp.asarray(v) for k, v in fields.items()})
+    jsc = jhs.HaloScalars(**{k: jnp.asarray(v) for k, v in sc.items()})
+    theirs = jax.vmap(
+        lambda p, s: jhs.compute_properties(jhs.BoundSubhaloSlice(jctx, p, s), CHEM_KEYS)
+    )(jparts, jsc)
+
+    tctx = TorchContext(**ctx_kw)
+    tparts = ths.HaloParticles(*_torch(*(base[k] for k in ths.HaloParticles._fields[:-1])),
+                               fields={k: torch.from_numpy(v) for k, v in fields.items()})
+    tsc = ths.HaloScalars(*_torch(*(sc[k] for k in ths.HaloScalars._fields)))
+    s = ths.BoundSubhaloSlice(tctx, tparts, tsc)
+    s.__dict__.update(ths.shared_sort_artifacts(tparts, tsc, tctx))
+    ours = ths.compute_properties(s, CHEM_KEYS)
+    for key in CHEM_KEYS:
+        a = np.asarray(theirs[key], np.float64)
+        assert (a > 0).any(), key
+        np.testing.assert_allclose(ours[key].numpy(), a, rtol=1e-5, atol=0, err_msg=key)

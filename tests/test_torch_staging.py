@@ -108,3 +108,83 @@ def test_presize_and_count_match(staged, presize):
     np.testing.assert_array_equal(c_t[0].numpy(), np.asarray(c_j[0]))
     np.testing.assert_array_equal(b_t[0].numpy(), np.asarray(b_j[0]))
     assert (b_t[0] <= c_t[0]).all() and (b_t[0] < c_t[0]).any()
+
+
+@pytest.fixture(scope="module")
+def hydro_staged(tmp_path_factory):
+    """One hydro mock staged twice: by the JAX pipeline from its written
+    snapshot and membership file (every cell read, StellarAges derived
+    as ``soap_tpu.pipeline.chunks`` derives them), and by the port from
+    the in-memory universe."""
+    import os
+
+    from soap_tpu.io.swift_snapshot import SnapshotMetadata, read_masked_cells
+    from soap_tpu.pipeline.chunks import required_datasets as jax_required
+    from soap_tpu.pipeline.membership import run_group_membership
+    from soap_tpu.pipeline.specs import build_specs as jax_build_specs
+    from soap_tpu_torch.pipeline import chunks as tchunks
+    from soap_tpu_torch.pipeline import run as trun
+    from soap_tpu_torch.pipeline.specs import build_specs
+    from soap_tpu_torch.utils.mock_data import build_mock_universe
+
+    tmp = str(tmp_path_factory.mktemp("hydro_stage"))
+    kw = dict(n_halos=5, n_field=2000, boxsize=16.0, seed=61, hydro=True, n_satellites=1)
+    sim = mock_data.make_mock_simulation(tmp, **kw)
+    mem = os.path.join(tmp, "membership.hdf5")
+    run_group_membership(sim["snapshot"], sim["hbt_basename"], mem)
+    meta = SnapshotMetadata(sim["snapshot"], [mem])
+    ptypes = ["PartType0", "PartType1", "PartType4", "PartType5"]
+    fields_per_type = {
+        pt: [f for f in tchunks.BASE_FIELDS if f in meta.datasets[pt]] for pt in ptypes
+    }
+    for pt, names in jax_required(jax_build_specs(None, False, meta.virBN98), meta).items():
+        fields_per_type[pt] += [n for n in names if n not in fields_per_type[pt]]
+    data = read_masked_cells(meta, np.ones(meta.nr_cells, bool), fields_per_type)
+    H0 = meta.cosmology_attrs["H0 [internal units]"]
+    age_a, age_h0 = meta.cosmology.age_table()
+    ages = (age_a.astype(np.float32), (age_h0 / H0).astype(np.float32))
+    jax_pts = {}
+    for pt in ptypes:
+        f = {k: v for k, v in data[pt].items() if k not in ("Coordinates", "__cells__")}
+        if pt == "PartType4":
+            t_now = np.interp(float(meta.a), *ages)
+            f["StellarAges"] = np.maximum(
+                t_now - np.interp(f["BirthScaleFactors"], *ages), 0.0
+            ).astype(np.float32)
+        jax_pts[pt] = jcd.stage_ptype(np.mod(data[pt]["Coordinates"], meta.boxsize), f,
+                                      meta.boxsize)
+    uni = build_mock_universe(**kw)
+    tmeta = trun.mock_metadata(uni)
+    host = tchunks.mock_fields(
+        uni, build_specs(None, False, tmeta.virBN98), tmeta, ptypes, trun.age_table(tmeta)
+    )
+    port = tchunks.stage_chunk(host, uni.boxsize, torch.device("cpu"))
+    return jax_pts, port
+
+
+@pytest.mark.parametrize("ptype", ["PartType0", "PartType1", "PartType4", "PartType5"])
+def test_hydro_staging_bit_equal_to_jax_pipeline(hydro_staged, ptype):
+    jax_pts, port = hydro_staged
+    jpt, tpt = jax_pts[ptype], port.ptypes[ptype]
+    assert tpt.n == jpt.n > 0
+    assert tpt.row_width == jpt.row_width and tpt.cols_f == jpt.cols_f
+    assert tpt.cols_i == jpt.cols_i
+    for name in ("offsets", "counts", "sat", "mass_sat"):
+        assert np.asarray(getattr(jpt, name)).tobytes() == getattr(tpt, name).numpy().tobytes()
+    rows = np.asarray(jpt.packed_lines).reshape(-1, jpt.row_width)
+    assert rows.tobytes() == tpt.packed.numpy().tobytes()
+    if ptype == "PartType0":
+        # gas rows are the widest: past 128 columns they pad to 128s
+        assert tpt.row_width in (64, 128) and len(tpt.cols_f) > 10
+
+
+def test_wide_rows_stage_bit_equal(staged):
+    """Rows past 128 columns pad to a multiple of 128 (and gather with no
+    alignment head), as in the JAX staging."""
+    uni, fields, _, _ = staged
+    wide = dict(fields, Wide=np.random.default_rng(2).random((len(uni.pos), 130), np.float32))
+    jpt = jcd.stage_ptype(uni.pos, wide, uni.boxsize)
+    tpt = tcd.stage_ptype(uni.pos, wide, uni.boxsize, torch.device("cpu"))
+    assert tpt.row_width == jpt.row_width == 256
+    rows = np.asarray(jpt.packed_lines).reshape(-1, jpt.row_width)
+    assert rows.tobytes() == tpt.packed.numpy().tobytes()
