@@ -4,6 +4,7 @@
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py            # add --profile for kernel profiles
+                                     # (main, hydro and COLIBRE paths)
 
 Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
@@ -28,9 +29,16 @@ Phases, each printing its lines and raising on failure:
     and both the narrow and the wide pass;
  5h. the same for the default hydro list (38 calculations, 4729 keys) on
     the CPU hydro test's 8-halo mock of gas, dark matter, stars and black
-    holes: every key within the test's tolerances, equal counters, K1
+    holes: every key within the tests' tolerances, equal counters, K1
     launched for every particle type, K2 for gas, star and luminosity
     configs;
+ 5p. the same for the COLIBRE_THERMAL (50 calculations, 4114 keys) and
+    FLAMINGO (38, 2103) parameter files' lists and contexts on that mock,
+    and for COLIBRE_THERMAL's new spec kinds with every property enabled
+    (the files switch their iterative inertia tensors off): the family
+    of four core-excised SOs, a 50 kpc fixed-radius SO and the apertures
+    of twice the stellar half-mass radius, with K2 launched for the
+    core-excised family and the property-sized apertures;
  6. the main path: bench.py::bench_dmo's run (2048 halos, 9.62M
     particles, the full spec list of 38 calculations and 508 keys, with
     EncloseRadius): a warm pass, then TIMED_PASSES timed passes, each
@@ -45,8 +53,16 @@ Phases, each printing its lines and raising on failure:
  8. the hydro path: bench.py::bench_hydro's universe at the DMO path's
     2048 halos (~11M particles in four types), built in memory with no
     file, with the full default hydro list and EncloseRadius, through
-    the same passes, reporting K1 launches by particle type and K2
-    launches by config kind.
+    the same passes (HYDRO_TIMED_PASSES timed ones), reporting K1
+    launches by particle type and K2 launches by config kind;
+ 9. the COLIBRE path: the same universe with the COLIBRE_THERMAL
+    parameter file's list (50 calculations, 4114 keys: core-excised SOs,
+    apertures from 100 pc to 100 kpc, property-sized apertures) and
+    context, through the same passes.  The list has no iterative inertia
+    tensor, so K2 does not run on it; K1 must launch for every type;
+ 10. the COLIBRE every-key path: the same universe with phase 5p's
+    every-key list (11 calculations, 1390 keys), where K2 runs for the
+    core-excised SO family and the property-sized spheres at full size.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -65,6 +81,7 @@ import numpy as np
 import torch
 
 from soap_tpu_torch.models import halo_slice as hs
+from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
@@ -78,9 +95,11 @@ from soap_tpu_torch.pipeline.run import age_table, make_context, mock_metadata
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import build_mock_universe
+from soap_tpu_torch.utils.parity import is_loose, key_close, scaled_error
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
+HYDRO_TIMED_PASSES = 3  # the hydro and COLIBRE paths', to fit the run's time limit
 GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
 ENGINE_SEED = 11
 BENCH = dict(
@@ -366,15 +385,22 @@ def _bench_inputs(uni, device):
     return ctx, chunk, args, specs
 
 
-def _hydro_inputs(uni, device):
+def _hydro_inputs(uni, device, parameter_file=None):
     """Context, staged chunk (gas, dark matter, stars, black holes, built
     in memory as the JAX reader would hand them over), process()
     arguments (all halos central, 1.01 x EncloseRadius, EncloseRadius)
-    and the default hydro spec list of a mock hydro universe."""
+    and the hydro spec list of a mock hydro universe: a shipped
+    parameter file's list and context, ``every_key_specs`` with
+    COLIBRE_THERMAL's context ("every-key"), or the defaults."""
     meta = mock_metadata(uni)
-    specs = build_specs(None, False, meta.virBN98)
+    params = None if parameter_file is None else ParameterFile(parameter_file_path(
+        "COLIBRE_THERMAL" if parameter_file == "every-key" else parameter_file))
+    if parameter_file == "every-key":
+        specs = every_key_specs(meta.virBN98)
+    else:
+        specs = build_specs(params, False, meta.virBN98)
     ptypes = [pt for pt in meta.ptypes if meta.datasets[pt]]
-    ctx = make_context(meta, ptypes, False)
+    ctx = make_context(meta, ptypes, False, params)
     chunk = stage_chunk(mock_fields(uni, specs, meta, ptypes, age_table(meta)),
                         uni.boxsize, device)
     H = uni.n_halos
@@ -389,33 +415,20 @@ def _hydro_inputs(uni, device):
     return ctx, chunk, args, specs
 
 
-#: keys compared at rtol 1e-5 and exactly, as tests/test_torch_engine_full.py
-#: (DMO) and tests/test_torch_engine_hydro.py (hydro)
-TIGHT = ("r", "Mtot", "Mdm", "HalfMassRadiusTot", "HalfMassRadiusDM")
-COUNTS = ("Ndm",)
-HYDRO_TIGHT = ("r", "Mtot", "Mgas", "Mdm", "Mstar", "Mbh_dynamical")
-HYDRO_COUNTS = ("Ngas", "Ndm", "Nstar", "Nbh")
-
-
-def _compare(ref, got, counts=COUNTS, tight=TIGHT):
-    """The CPU parity tests' tolerances: counts equal; the tight keys
-    within rtol 1e-5; the rest within rtol 1e-3 and atol 1e-4 max|ref|
-    per key."""
+def _compare(ref, got):
+    """The CPU parity tests' tolerances (``soap_tpu_torch/utils/parity.py``)
+    on every key of every group; returns the largest scaled error of the
+    loose keys and of the others."""
+    worst = {"loose": 0.0, "other": 0.0}
     for group in ref:
         for key in ref[group]:
-            a = np.asarray(ref[group][key], np.float64)
-            b = np.asarray(got[group][key], np.float64)
-            if a.shape != b.shape or not np.isfinite(b).all():
-                ok = False
-            elif key in counts:
-                ok = np.array_equal(a, b)
-            elif key in tight:
-                ok = np.allclose(b, a, rtol=1e-5, atol=0.0)
-            else:
-                scale = np.abs(a).max() if a.size else 1.0
-                ok = np.allclose(b, a, rtol=1e-3, atol=1e-4 * max(scale, 1e-30))
-            if not ok:
-                raise AssertionError(f"{group}/{key}: GPU engine differs from CPU")
+            if not key_close(ref[group][key], got[group][key], key):
+                raise AssertionError(
+                    f"{group}/{key}: GPU engine differs from CPU (scaled error "
+                    f"{scaled_error(ref[group][key], got[group][key]):.3e})")
+            cls = "loose" if is_loose(key) else "other"
+            worst[cls] = max(worst[cls], scaled_error(ref[group][key], got[group][key]))
+    return {k: float(f"{v:.3e}") for k, v in worst.items()}
 
 
 def _counters(stats):
@@ -453,7 +466,7 @@ def engine_case(where):
 def phase_engine(dev):
     uni, ref, st_c, _, _ = engine_case("cpu")
     _, got, st_g, n1, n2 = engine_case(dev)
-    _compare(ref, got)
+    worst = _compare(ref, got)
     c_cpu, c_gpu = _counters(st_c), _counters(st_g)
     if c_cpu != c_gpu:
         raise AssertionError(f"engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
@@ -464,17 +477,17 @@ def phase_engine(dev):
         raise AssertionError(f"GPU engine bypassed a kernel: K1 {n1}, K2 {n2} launches")
     n_keys = sum(len(d) for d in got.values())
     say("engine", f"{len(uni.halo_renclose)} halos, {len(uni.pos)} particles, "
-        f"{len(got)} groups, {n_keys} keys: GPU == CPU within tolerance; "
-        f"counters equal {c_gpu}; launches K1 {n1}, K2 {n2}")
+        f"{len(got)} groups, {n_keys} keys: GPU == CPU within tolerance (largest "
+        f"scaled error {worst}); counters equal {c_gpu}; launches K1 {n1}, K2 {n2}")
 
 
-def hydro_engine_case(where):
+def hydro_engine_case(where, parameter_file=None):
     """Phase 5h's run on one device: the CPU hydro test's mock (two
     satellites, they and every fourth halo satellites, every third input
-    radius shrunk x0.002, EncloseRadius understated x0.3) with the full
-    default hydro list."""
+    radius shrunk x0.002, EncloseRadius understated x0.3) with the
+    default hydro list, or a shipped parameter file's (phase 5p)."""
     uni = build_mock_universe(**HYDRO_SMALL)
-    ctx, chunk, args, specs = _hydro_inputs(uni, torch.device(where))
+    ctx, chunk, args, specs = _hydro_inputs(uni, torch.device(where), parameter_file)
     H = uni.n_halos
     args["is_central"] = (np.arange(H) % 4 != 0) & (np.asarray(uni.halo_rank) == 0)
     args["search_radius_phys"] = args["search_radius_phys"] * np.where(
@@ -491,7 +504,7 @@ def hydro_engine_case(where):
 def phase_engine_hydro(dev):
     uni, ref, st_c, _ = hydro_engine_case("cpu")
     _, got, st_g, k2_by = hydro_engine_case(dev)
-    _compare(ref, got, HYDRO_COUNTS, HYDRO_TIGHT)
+    worst = _compare(ref, got)
     c_cpu, c_gpu = _counters(st_c), _counters(st_g)
     if c_cpu != c_gpu:
         raise AssertionError(f"hydro engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
@@ -504,8 +517,59 @@ def phase_engine_hydro(dev):
         raise AssertionError(f"K2 did not launch for gas, star and luminosity configs: {k2_by}")
     n_keys = sum(len(d) for d in got.values())
     say("engine-hydro", f"{uni.n_halos} halos, {len(got)} groups, {n_keys} keys: GPU == "
-        f"CPU within tolerance; counters equal {c_gpu}; K1 launches by type {k1_by}; "
-        f"K2 launches by config {dict(sorted(k2_by.items()))}")
+        f"CPU within tolerance (largest scaled error {worst}); counters equal {c_gpu}; "
+        f"K1 launches by type {k1_by}; K2 launches by config {dict(sorted(k2_by.items()))}")
+
+
+#: phase 5p's every-key run: the families whose K2 launches it must see
+#: (the first group of each): the four core-excised SOs, and the two
+#: property-sized spheres
+EVERY_KEY_K2_GROUPS = (
+    "SO/200_crit", "ExclusiveSphere/2xHalfMassRadiusStars",
+    "InclusiveSphere/2xHalfMassRadiusStars",
+)
+
+
+def every_key_specs(bn98):
+    """COLIBRE_THERMAL's bound subhalo, SOs and property-sized apertures
+    with no property switched off, and a 50 kpc fixed-radius SO (as
+    tests/test_torch_engine_excised.py runs them against the JAX engine)."""
+    with open(parameter_file_path("COLIBRE_THERMAL")) as f:
+        raw = json.load(f)
+    for section in ("SubhaloProperties", "SOProperties", "ApertureProperties",
+                    "ProjectedApertureProperties"):
+        raw[section].pop("properties", None)
+    raw["SOProperties"]["variations"]["50_kpc"] = {"type": "physical", "radius_in_kpc": 50.0}
+    specs = build_specs(ParameterFile(parameter_dictionary=raw), False, bn98)
+    return [s for s in specs if s.kind in ("bound", "SO") or s.radius_property is not None]
+
+
+def uses_k2(specs):
+    """Whether a spec list runs the inertia loop: an iterative 3D inertia
+    tensor (projected ones and non-iterative ones take plain PyTorch)."""
+    return any("InertiaTensor" in k and "Noniterative" not in k
+               for s in specs if s.kind != "projected" for k in s.keys)
+
+
+def phase_engine_params(dev):
+    for name in ("COLIBRE_THERMAL", "FLAMINGO", "every-key"):
+        uni, ref, st_c, _ = hydro_engine_case("cpu", name)
+        _, got, st_g, k2_by = hydro_engine_case(dev, name)
+        worst = _compare(ref, got)
+        c_cpu, c_gpu = _counters(st_c), _counters(st_g)
+        if c_cpu != c_gpu:
+            raise AssertionError(f"{name} engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
+        k1_by = dict(sorted(st_g.k1_launches_by_ptype.items()))
+        if len(k1_by) != 4 or min(k1_by.values()) == 0:
+            raise AssertionError(f"{name}: K1 did not launch for every particle type: {k1_by}")
+        k2_groups = dict(sorted(st_g.k2_launches_by_group.items()))
+        want = EVERY_KEY_K2_GROUPS if name == "every-key" else ()
+        if want and min(k2_groups.get(g, 0) for g in want) == 0:
+            raise AssertionError(f"{name}: K2 did not launch for {want}: {k2_groups}")
+        n_keys = sum(len(d) for d in got.values())
+        say("engine-params", f"{name}: {uni.n_halos} halos, {len(got)} groups, {n_keys} "
+            f"keys: GPU == CPU within tolerance (largest scaled error {worst}); counters "
+            f"equal {c_gpu}; K1 launches by type {k1_by}; K2 launches by family {k2_groups}")
 
 
 class PathCheck:
@@ -585,11 +649,14 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
         launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
         by_g = dict(sorted(il.cluster_launches.items()))
         k2_by_config = dict(sorted(hs.k2_launches_by_config.items()))
-        if min(launches.values()) == 0:
+        # every kernel the list runs launched (K2 only with iterative
+        # inertia keys), and none it does not run
+        if launches["range_gather"] == 0 or (launches["inertia_loop"] > 0) != uses_k2(specs):
             raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
         rates.append(H / dt)
     peak = torch.cuda.max_memory_allocated() / 2**30
     k1_by_ptype = dict(sorted(engine.stats.k1_launches_by_ptype.items()))
+    k2_by_family = dict(sorted(engine.stats.k2_launches_by_group.items()))
 
     if sum(len(d) for d in res.values()) != n_keys:
         raise AssertionError(f"{tag}: {sum(len(d) for d in res.values())} keys, not {n_keys}")
@@ -615,12 +682,12 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
         f"{', '.join(f'{r:.2f}' for r in rates)}); {_counters(engine.stats)}; "
         f"peak device memory {peak:.2f} GiB; launches per pass {launches}, K1 "
         f"launches by type {k1_by_ptype}, K2 launches by config {k2_by_config}, "
-        f"by G {by_g}, by C and G {dict(sorted(by_cg.items()))}")
+        f"by family {k2_by_family}, by G {by_g}, by C and G {dict(sorted(by_cg.items()))}")
     say(tag, f"checked pass, every call against its plain version: K1 "
         f"bit-equal at {check.k1['shapes']}; K2 within rtol {K2_RTOL} at "
         f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e})")
     return dict(res=res, launches=launches, by_g=by_g, k1_by_ptype=k1_by_ptype,
-                k2_by_config=k2_by_config, inputs=inputs,
+                k2_by_config=k2_by_config, k2_by_family=k2_by_family, inputs=inputs,
                 check={"range_gather": check.k1, "inertia_loop": check.k2})
 
 
@@ -660,7 +727,8 @@ def phase_giant(dev):
 
 def phase_hydro(dev):
     """The hydro path: bench.py::bench_hydro's universe built in memory,
-    the full default hydro list (38 calculations, 4729 keys)."""
+    the full default hydro list (38 calculations, 4729 keys).  Returns the
+    run and the universe."""
     t0 = time.perf_counter()
     uni = build_mock_universe(**HYDRO)
     n_part = len(uni.pos) + sum(len(f["Coordinates"]) for f in uni.extra_ptypes.values())
@@ -672,7 +740,7 @@ def phase_hydro(dev):
         + f"), {uni.n_halos} halos, built in {t1 - t0:.1f} s, staged in "
         f"{time.perf_counter() - t1:.1f} s; row widths "
         f"{ {pt: c.row_width for pt, c in inputs[1].ptypes.items()} }")
-    run = drive_path("hydro", uni.n_halos, inputs, dev)
+    run = drive_path("hydro", uni.n_halos, inputs, dev, HYDRO_TIMED_PASSES)
     sub = run["res"]["BoundSubhalo"]
     for key in ("Mtot", "Mgas", "Mstar"):
         if not (sub[key] > 0).all():
@@ -682,6 +750,47 @@ def phase_hydro(dev):
     if min(run["k2_by_config"].get(c, 0) for c in ("gas", "star", "lum")) == 0:
         raise AssertionError(f"hydro path: K2 missed gas/star/luminosity configs "
                              f"{run['k2_by_config']}")
+    return run, uni
+
+
+def phase_colibre(dev, uni):
+    """The COLIBRE path: the hydro path's universe with the COLIBRE_THERMAL
+    parameter file's list (50 calculations, 4114 keys) and context."""
+    t0 = time.perf_counter()
+    inputs = _hydro_inputs(uni, dev, "COLIBRE_THERMAL")
+    torch.cuda.synchronize()
+    say("colibre", f"staged in {time.perf_counter() - t0:.1f} s; row widths "
+        f"{ {pt: c.row_width for pt, c in inputs[1].ptypes.items()} }")
+    run = drive_path("colibre", uni.n_halos, inputs, dev, HYDRO_TIMED_PASSES)
+    res = run["res"]
+    for key in ("Mtot", "Mgas", "Mstar"):
+        if not (res["BoundSubhalo"][key] > 0).all():
+            raise AssertionError(f"colibre BoundSubhalo/{key} not positive for every halo")
+    # the sphere of twice the stellar half-mass radius holds no more than
+    # the bound stars, and more than half of them in most halos (with few
+    # stars the interpolated half-mass radius can fall inside the first)
+    m_bound = res["BoundSubhalo"]["Mstar"]
+    m_ap = res["ExclusiveSphere/2xHalfMassRadiusStars"]["Mstar"]
+    over_half = float(np.mean(m_ap > 0.5 * m_bound))
+    if (m_ap > m_bound * (1 + 1e-6)).any() or over_half < 0.5:
+        raise AssertionError(f"colibre ExclusiveSphere/2xHalfMassRadiusStars/Mstar: "
+                             f"{over_half:.3f} of halos over half the bound stars")
+    say("colibre", f"{over_half:.4f} of halos hold more than half their bound stellar "
+        f"mass within twice its half-mass radius")
+    if len(run["k1_by_ptype"]) != 4 or min(run["k1_by_ptype"].values()) == 0:
+        raise AssertionError(f"colibre path: K1 missed a particle type {run['k1_by_ptype']}")
+    return run
+
+
+def phase_colibre_every_key(dev, uni):
+    """The COLIBRE every-key path: ``every_key_specs`` with COLIBRE_THERMAL's
+    context on the hydro path's universe."""
+    run = drive_path("colibre-every-key", uni.n_halos, _hydro_inputs(uni, dev, "every-key"),
+                     dev, HYDRO_TIMED_PASSES)
+    missing = [g for g in EVERY_KEY_K2_GROUPS if run["k2_by_family"].get(g, 0) == 0]
+    if missing:
+        raise AssertionError(f"colibre every-key path: K2 missed {missing}: "
+                             f"{run['k2_by_family']}")
     return run
 
 
@@ -732,20 +841,27 @@ def main():
     k2 = phase_k2(dev)
     phase_engine(dev)
     phase_engine_hydro(dev)
+    phase_engine_params(dev)
     main_run = phase_main(dev)
     giant_run = phase_giant(dev)
-    hydro_run = phase_hydro(dev)
+    hydro_run, hydro_uni = phase_hydro(dev)
+    colibre_run = phase_colibre(dev, hydro_uni)
+    every_key_run = phase_colibre_every_key(dev, hydro_uni)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
+        phase_profile(dev, "colibre", colibre_run["inputs"])
 
-    # launches: the main path's count; giant_path_launches and
-    # hydro_path_launches: those paths'; path_checks: each path's checked
+    # launches: the main path's count; giant_path_launches,
+    # hydro_path_launches, colibre_path_launches and
+    # colibre_every_key_path_launches: those paths';
+    # path_checks: each path's checked
     # pass (calls, max abs err against the plain version, the shapes it
     # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
     # library_ms: the phase-3/4 cell's.  The giant K2 cell stands for the streaming TPU
     # kernel.
-    runs = {"main": main_run, "giant": giant_run, "hydro": hydro_run}
+    runs = {"main": main_run, "giant": giant_run, "hydro": hydro_run,
+            "colibre": colibre_run, "colibre-every-key": every_key_run}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -762,6 +878,8 @@ def main():
         return dict(launches=main_run["launches"][name],
                     giant_path_launches=giant_run["launches"][name],
                     hydro_path_launches=hydro_run["launches"][name],
+                    colibre_path_launches=colibre_run["launches"][name],
+                    colibre_every_key_path_launches=every_key_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

@@ -4,7 +4,8 @@ A trimmed copy of ``soap_tpu/core/property_table.json`` (the reference's
 ``full_property_list``) as package data: per property key its output
 dataset name, whether a dark-matter-only run computes it (every key a
 DMO run skips is a hydro key), and the particle datasets it needs, the
-fields ``build_specs``, ``implemented_keys_for`` and
+fields ``build_specs`` (with ``by_output_name`` for parameter files),
+``implemented_keys_for`` and
 ``pipeline/run.py::required_datasets`` read.
 ``tests/test_torch_host_mirror.py`` holds the copy to the original.
 """
@@ -43,6 +44,13 @@ class PropertyTable:
 
     def __contains__(self, key: str) -> bool:
         return key in self._props
+
+    def by_output_name(self, name: str) -> PropertyDef:
+        """The first property whose output dataset is ``name``."""
+        for p in self._props.values():
+            if p.name == name:
+                return p
+        raise KeyError(name)
 
 
 @lru_cache(maxsize=1)

@@ -1570,18 +1570,21 @@ class SOSlice(HaloSlice):
     """``SO/<X>/*`` selection: all particles inside the spherical
     overdensity radius.  ``target_density`` is the PHYSICAL threshold
     density (e.g. 200 x critical); a radius multiple of another SO passes
-    ``physical_radius`` instead.  Every SO here is a virial definition
-    (the fixed-radius SOs of parameter files are not ported), so the flow
-    rates and concentrations always run."""
-
-    virial_definition = True
+    ``physical_radius`` instead, as does a parameter file's fixed-radius
+    SO.  The density definitions and their radius multiples are virial;
+    a fixed-radius SO (``virial=False``) has no flow rates and no
+    concentrations (they come out 0).  ``core_excision_fraction`` f
+    excises the gas within f x R_SO from the core-excised keys."""
 
     def __init__(self, ctx, parts, scalars, target_density=None, physical_radius=None,
-                 core_excision_fraction=None):
+                 core_excision_fraction=None, virial: bool = True):
         super().__init__(ctx, parts, scalars)
         self.target_density = target_density
-        self.physical_radius = physical_radius  # (B,) tensor
+        self.physical_radius = (
+            None if physical_radius is None else _per_halo(physical_radius, parts.valid)
+        )
         self.core_excision_fraction = core_excision_fraction
+        self.virial_definition = virial
 
     def _inertia_cfg(self, species: str):
         """SO inertia: sphere = SO radius, ALL candidates of the species
@@ -1744,15 +1747,19 @@ class SOSlice(HaloSlice):
 
     @lazy_property
     def DarkMatterMassFlowRate(self):
+        if not self.virial_definition:
+            return self._zeros(6)
         return self._flow_rate(self._valid_type_mask("PartType1"), self.parts.mass, "mass")
 
     @lazy_property
     def StellarMassFlowRate(self):
+        if not self.virial_definition:
+            return self._zeros(6)
         return self._flow_rate(self._valid_type_mask("PartType4"), self.parts.mass, "mass")
 
     @lazy_property
     def MetalMassFlowRate(self):
-        if not self._has("PartType0/MetalMassFractions"):
+        if not (self.virial_definition and self._has("PartType0/MetalMassFractions")):
             return self._zeros(6)
         w = self._full_from_gas(self._gas_mass * self.field("PartType0/MetalMassFractions"))
         return self._flow_rate(self._valid_type_mask("PartType0"), w, "mass")
@@ -1774,7 +1781,7 @@ class SOSlice(HaloSlice):
         return self._full_from_gas(self.field("PartType0/InternalEnergies"))
 
     def _gas_T_flow(self, band, flow_type="mass"):
-        if not self._has("PartType0/Temperatures"):
+        if not (self.virial_definition and self._has("PartType0/Temperatures")):
             return self._zeros(9)
         if flow_type != "mass" and not self._has("PartType0/InternalEnergies"):
             return self._zeros(9)
@@ -1813,10 +1820,14 @@ class SOSlice(HaloSlice):
 
     @lazy_property
     def concentration_unsoft(self):
+        if not self.virial_definition:
+            return self._zeros()
         return self._concentration(self.radius)
 
     @lazy_property
     def concentration_soft(self):
+        if not self.virial_definition:
+            return self._zeros()
         return self._concentration(self.soft_radius)
 
     @lazy_property
@@ -1845,10 +1856,14 @@ class SOSlice(HaloSlice):
 
     @lazy_property
     def concentration_dmo_unsoft(self):
+        if not self.virial_definition:
+            return self._zeros()
         return self._concentration_dmo(self.radius)
 
     @lazy_property
     def concentration_dmo_soft(self):
+        if not self.virial_definition:
+            return self._zeros()
         return self._concentration_dmo(self.soft_radius)
 
     @lazy_property

@@ -14,9 +14,11 @@ wrong, and neither did the threaded calls after it
 
 In the engine this showed as a CPU run whose first bucket's radii were
 off by up to 3e-4 for one halo, which moved its radius sort, SO radius
-and half-mass radius: the intermittent slice-test failure.  The CPU
-engine calls ``prime`` before its first bucket.  CUDA tensors never
-take this path.
+and half-mass radius: the intermittent slice-test failure.  Importing
+``soap_tpu_torch`` calls ``prime``, so every op of the port (host steps
+and op-level tests included) comes after it; the CPU engine calls it
+again (a no-op) before its first bucket.  CUDA tensors never take this
+path.
 """
 
 from __future__ import annotations

@@ -20,8 +20,14 @@ Around that core, as in the JAX engine:
    ("wide") pass, so they do not set the gather capacity of every other
    key; the wide pass copies from the narrow pass's apertures;
  - centrals-only specs (SO) run in a central phase of their own;
- - consecutive specs of one kind (SO densities, aperture radii, one
-   axis's projected radii) form a family: one K2 launch for all of them;
+ - consecutive specs of one kind (SO densities, core-excised or not,
+   aperture radii, one axis's projected radii) form a family: one K2
+   launch for all of them;
+ - a parameter file's other spec kinds run alone: fixed-radius SOs (not
+   virial: no flow rates, no concentrations), and apertures and
+   projected apertures sized per halo by a multiple of an earlier spec's
+   property in the same bucket (they need every gathered row, so they
+   are never truncated, and stay in the narrow pass with their source);
  - given the catalogue's EncloseRadius, the first round truncates the
    bound, aperture and projected specs to the radius-sorted row prefix
    inside max(EncloseRadius, largest aperture), with a bound-count
@@ -53,7 +59,7 @@ from soap_tpu_torch.models.halo_slice import (
     shared_sort_artifacts,
 )
 from soap_tpu_torch.ops import cpu_math, geometry
-from soap_tpu_torch.ops import range_gather
+from soap_tpu_torch.ops import inertia_loop, range_gather
 from soap_tpu_torch.ops.grid import halo_cell_ranges
 from soap_tpu_torch.ops.range_gather import (
     merge_adjacent_ranges,
@@ -79,7 +85,8 @@ MAX_BATCH = 4096
 #: 128-column gas rows in 8 lanes peaked at 4.53 GiB on an H100 80GB at
 #: 700 W, PERF.md), so 24 GiB keeps a hydro bucket within an 80 GB card;
 #: a DMO bucket's 16 columns stay at TARGET_ROWS.  The JAX engine's
-#: B <= 64 cap and //5 budget were fitted to a 16 GB TPU and are not used
+#: B <= 64 cap and //5 budget were fitted to a 16 GB TPU; they serve only
+#: to cut the JAX engine's tiles (``HaloEngine(tile_caps=...)``)
 ROW_BYTES_BUDGET = 24 * 2**30
 #: rows per block of the range gather (the JAX layout's S)
 GATHER_S = 64
@@ -133,19 +140,14 @@ class HaloTypeSpec:
 
 
 def _check_spec(spec: HaloTypeSpec) -> None:
-    """Raise for a spec this engine does not run (keys are checked by
+    """Raise for a spec this engine cannot run (keys are checked by
     ``compute_properties``)."""
     ported = (
         spec.kind == "bound"
-        or (
-            spec.kind == "SO"
-            and spec.so_type in ("crit", "mean", "BN98")
-            and spec.core_excision_fraction is None
-        )
+        or (spec.kind == "SO" and spec.so_type in ("crit", "mean", "BN98", "physical"))
         or (
             spec.kind in ("aperture", "projected")
-            and spec.radius_property is None
-            and spec.aperture_radius_mpc is not None
+            and (spec.radius_property is None) != (spec.aperture_radius_mpc is None)
         )
     )
     if not ported:
@@ -160,10 +162,21 @@ def _make_slice(spec: HaloTypeSpec, ctx, parts, scalars, prior):
             parent_r = prior[spec.radius_multiple_of]["r"]
             return SOSlice(ctx, parts, scalars,
                            physical_radius=spec.radius_multiple * parent_r)
-        return SOSlice(ctx, parts, scalars, target_density=spec.target_density(ctx))
+        if spec.so_type == "physical":
+            # a fixed radius is no virial definition
+            return SOSlice(ctx, parts, scalars, physical_radius=spec.so_multiple,
+                           virial=False)
+        return SOSlice(ctx, parts, scalars, target_density=spec.target_density(ctx),
+                       core_excision_fraction=spec.core_excision_fraction)
+    if spec.radius_property is not None:
+        # sized per halo by a property of an earlier spec of this bucket
+        src_group, src_key, mult = spec.radius_property
+        radius = float(mult) * prior[src_group][src_key]
+    else:
+        radius = spec.aperture_radius_mpc
     if spec.kind == "aperture":
-        return ApertureSlice(ctx, parts, scalars, spec.aperture_radius_mpc, spec.inclusive)
-    return ProjectedApertureSlice(ctx, parts, scalars, spec.aperture_radius_mpc, spec.axis)
+        return ApertureSlice(ctx, parts, scalars, radius, spec.inclusive)
+    return ProjectedApertureSlice(ctx, parts, scalars, radius, spec.axis)
 
 
 def _lanes(t: torch.Tensor, L: int) -> torch.Tensor:
@@ -215,7 +228,8 @@ def _family_slice(members, ctx, parts, scalars):
     per_halo = torch.tensor(values, dtype=torch.float32, device=scalars.index.device)
     per_halo = per_halo.repeat_interleave(scalars.index.shape[0])
     if spec0.kind == "SO":
-        return SOSlice(ctx, parts_l, scalars_l, target_density=per_halo)
+        return SOSlice(ctx, parts_l, scalars_l, target_density=per_halo,
+                       core_excision_fraction=spec0.core_excision_fraction)
     if spec0.kind == "aperture":
         return ApertureSlice(ctx, parts_l, scalars_l, per_halo, spec0.inclusive)
     return ProjectedApertureSlice(ctx, parts_l, scalars_l, per_halo, spec0.axis)
@@ -264,9 +278,13 @@ def _spec_truncatable(spec: HaloTypeSpec) -> bool:
     return spec.kind in ("aperture", "projected") and spec.radius_property is None
 
 
-def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[int] = None):
+def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[int] = None,
+             k2_by_group: Optional[Dict[str, int]] = None):
     """Property evaluation over all specs for one bucket: one shared
-    radius sort, then each family's slices.
+    radius sort, then each family's slices, in spec order (a radius
+    multiple or a property-sized aperture reads an earlier spec's
+    results).  ``k2_by_group`` gains the inertia-loop launches of each
+    family (or lone spec) under its first group.
 
     ``trunc``: sorted-prefix row truncation.  Truncatable specs run on
     the first ``trunc`` radius-sorted rows (prefix slices of the sort
@@ -336,7 +354,12 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                     s.__dict__["_proj_sort"] = tuple(_lanes(t, L) for t in one._proj_sort)
             else:
                 s.__dict__.update({k: _lanes(v, L) for k, v in shr.items()})
+            n_k2 = inertia_loop.launches
             res = compute_properties(s, spec0.keys)
+            if k2_by_group is not None and inertia_loop.launches > n_k2:
+                k2_by_group[spec0.group] = (
+                    k2_by_group.get(spec0.group, 0) + inertia_loop.launches - n_k2
+                )
             B = scalars.index.shape[0]
             for i, spec in enumerate(members):
                 r = {k: v[i * B : (i + 1) * B] for k, v in res.items()}
@@ -364,6 +387,7 @@ def _process_bucket(
     fof_id: torch.Tensor,  # (B,) i64
     trunc: Optional[int] = None,  # sorted-prefix row truncation
     k1_by_ptype: Optional[Dict[str, int]] = None,  # K1 launches, added per ptype
+    k2_by_group: Optional[Dict[str, int]] = None,  # K2 launches, added per family
 ):
     """One padded bucket: range gather (one K1 call per particle type) +
     every property calculation.  Each type's extra datasets ride along as
@@ -429,7 +453,7 @@ def _process_bucket(
         is_central=is_central,
         fof_id=fof_id,
     )
-    out = _halo_fn(ctx, specs, trunc)(parts, scalars)
+    out = _halo_fn(ctx, specs, trunc, k2_by_group)(parts, scalars)
     for res in out.values():
         res["__needs_bigger__"] = res["__needs_bigger__"] & ~overflow
     return out, overflow
@@ -516,13 +540,21 @@ class EngineStats:
     bucket_calls_by_pass: Dict[str, int] = field(default_factory=dict)
     #: launches of the range-gather kernel (K1) by particle type
     k1_launches_by_ptype: Dict[str, int] = field(default_factory=dict)
+    #: launches of the inertia-loop kernel (K2) by the first group of
+    #: the family (or lone spec) that made them
+    k2_launches_by_group: Dict[str, int] = field(default_factory=dict)
     #: wall seconds from each bucket's dispatch to its results on the
     #: host (device compute + transfers), summed
     compute_seconds: float = 0.0
 
 
 class HaloEngine:
-    """Bucketed halo-property engine over one chunk on one device."""
+    """Bucketed halo-property engine over one chunk on one device.
+
+    ``tile_caps`` = (padded rows, halos) per bucket replaces the port's
+    byte-sized row budget and batch cap, for instance with the JAX
+    engine's multi-type plan (TARGET_ROWS // 5, 64), so that the two
+    engines cut the same hydro tiles."""
 
     def __init__(
         self,
@@ -530,8 +562,10 @@ class HaloEngine:
         chunk: ChunkData,
         specs: Sequence[HaloTypeSpec],
         device,
+        tile_caps: Optional[Tuple[int, int]] = None,
     ):
         self.device = torch.device(device)
+        self.tile_caps = tile_caps
         for pt in chunk.ptypes.values():
             if pt.packed.device.type != self.device.type:
                 raise ValueError(
@@ -745,7 +779,9 @@ class HaloEngine:
             def caps_sum(maxes):
                 return sum(_next_pow2(int(m) + 8, 128) for m in maxes.values())
 
-            budget = row_budget(self.chunk, specs, ctx0)
+            budget, max_batch = self.tile_caps or (
+                row_budget(self.chunk, specs, ctx0), MAX_BATCH
+            )
             plans = []
             pos = 0
             while pos < n:
@@ -755,7 +791,7 @@ class HaloEngine:
                 if bq * caps_sum(maxes) >= budget:
                     # giant-halo tile: no 8-lane floor, half the budget
                     bq, tile_budget = 1, budget // 2
-                while pos + n_sel < n and n_sel < MAX_BATCH:
+                while pos + n_sel < n and n_sel < max_batch:
                     cand = {
                         pt: max(maxes[pt], typemax[pt][pos + n_sel])
                         for pt in ctx0.ptypes
@@ -854,6 +890,7 @@ class HaloEngine:
                     *(self._tensor(x) for x in
                       (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof)),
                     pl["trunc"], self.stats.k1_launches_by_ptype,
+                    self.stats.k2_launches_by_group,
                 )
                 out = _to_host(out, nb)
                 ov = overflow[:nb].cpu().numpy()

@@ -6,7 +6,9 @@ its chunk staging.  ``make_context`` takes any metadata object shaped
 like the JAX package's ``SnapshotMetadata`` (duck-typed: the HDF5
 reader is not ported); ``mock_metadata`` builds one for a mock universe
 from the values its snapshot would record, without writing a file.
-No parameter file is read: the filters take their defaults.
+A parameter file (``core/params.py::ParameterFile``) sets the
+recently-heated and cold dense gas filters and the defined constants;
+without one they take their defaults.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from soap_tpu_torch.core.cosmology import Cosmology
+from soap_tpu_torch.core.params import ParameterFile
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.utils import mock_data
 
 #: default solar abundance ratios (a parameter file's defined_constants
-#: would override them)
+#: override them)
 DEFAULT_CONSTANTS = {
     "O_H_sun": 4.9e-4,
     "Fe_H_sun": 2.82e-5,
@@ -124,23 +127,34 @@ def mock_metadata(uni: mock_data.MockUniverse) -> SnapshotInfo:
     )
 
 
-def make_context(meta, ptypes: Sequence[str], dmo: bool) -> HaloContext:
+def make_context(
+    meta, ptypes: Sequence[str], dmo: bool, parameter_file: Optional[ParameterFile] = None
+) -> HaloContext:
     """HaloContext from snapshot metadata (physical snapshot units), with
-    the default filters of a run without a parameter file."""
+    the filters and constants of ``parameter_file`` (defaults without)."""
     # recently-heated AGN gas: a_limit such that the lookback time to it
-    # is 15 Myr; the AGN heating temperature sets the [dT/10, dT*10^0.3]
-    # window
+    # is delta_time_in_Myr (15); the AGN heating temperature sets the
+    # [dT 10^delta_logT_min, dT 10^delta_logT_max] window
     agn_a_limit, agn_Tmin, agn_Tmax = 2.0, 0.0, float("inf")
+    rh = parameter_file.recently_heated_gas_params() if parameter_file else {}
     H0_internal = float(meta.cosmology_attrs.get("H0 [internal units]", 0.0))
     if H0_internal > 0:
-        delta_internal = 15.0 * _MYR_S / meta.snap_units_cgs["Unit time in cgs (U_t)"]
+        delta_myr = float(rh.get("delta_time_in_Myr", 15.0))
+        delta_internal = delta_myr * _MYR_S / meta.snap_units_cgs["Unit time in cgs (U_t)"]
         age_a, age_h0 = meta.cosmology.age_table()
         ages_internal = age_h0 / H0_internal
         t_now = np.interp(meta.a, age_a, ages_internal)
         agn_a_limit = float(np.interp(t_now - delta_internal, ages_internal, age_a))
-        if meta.AGN_delta_T > 0:
-            agn_Tmin = meta.AGN_delta_T * 10.0**-1.0
-            agn_Tmax = meta.AGN_delta_T * 10.0**0.3
+        if rh.get("use_AGN_delta_T", True) and meta.AGN_delta_T > 0:
+            agn_Tmin = meta.AGN_delta_T * 10.0 ** float(rh.get("delta_logT_min", -1.0))
+            agn_Tmax = meta.AGN_delta_T * 10.0 ** float(rh.get("delta_logT_max", 0.3))
+    # cold dense gas: float() as YAML 1.1 reads "3.16e4" as a string
+    cold = (
+        parameter_file.get_parameters().get("calculations", {}).get("cold_dense_gas_filter", {})
+        if parameter_file else {}
+    )
+    constants = {**DEFAULT_CONSTANTS,
+                 **(parameter_file.get_defined_constants() if parameter_file else {})}
     ul = meta.snap_units_cgs["Unit length in cgs (U_L)"]
     um = meta.snap_units_cgs["Unit mass in cgs (U_M)"]
     ut = meta.snap_units_cgs["Unit time in cgs (U_t)"]
@@ -174,16 +188,18 @@ def make_context(meta, ptypes: Sequence[str], dmo: bool) -> HaloContext:
         agn_Tmin=agn_Tmin,
         agn_Tmax=agn_Tmax,
         observer_position=tuple(float(v) for v in meta.observer_position),
-        # n_H > 0.1 cm^-3 as a physical mass density in snapshot units
-        cold_dense_rho_threshold=0.1 * _M_H_G * ul**3 / um,
-        cold_dense_Tmax=10.0**4.5,
+        # n_H > n_min as a physical mass density in snapshot units
+        cold_dense_rho_threshold=(
+            float(cold.get("minimum_hydrogen_number_density_cm3", 0.1)) * _M_H_G * ul**3 / um
+        ),
+        cold_dense_Tmax=float(cold.get("maximum_temperature_K", 10.0**4.5)),
         named_columns=tuple(
             (f"{pt}/{ds}", tuple(cols))
             for ds, cols in sorted(meta.named_columns.items())
             for pt in meta.ptypes
             if ds in meta.datasets.get(pt, {})
         ),
-        constants=tuple(sorted(DEFAULT_CONSTANTS.items())),
+        constants=tuple(sorted(constants.items())),
         softening=tuple(soft),
         ptypes=tuple(ptypes),
         capacities=tuple(0 for _ in ptypes),

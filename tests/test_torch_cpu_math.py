@@ -1,4 +1,4 @@
-"""The CPU engine primes the vector math library before its first bucket.
+"""Importing the port, and the CPU engine, prime the vector math library.
 
 The first multi-threaded call of an MKL-backed elementwise function
 (``torch.exp``, ``torch.sqrt`` ...) in a fresh process sometimes returns
@@ -6,7 +6,8 @@ one thread's chunk at ~11-bit accuracy; every later call is exact
 (``soap_tpu_torch/ops/cpu_math.py``).  Without priming, that first call
 came back inexact in about one fresh 8-thread process in twenty, so the
 check below runs many fresh processes (one chance each); after priming
-none has.
+none has.  ``import soap_tpu_torch`` primes, so an op of the port called
+with no engine built (a host step, an op-level test) is exact too.
 """
 
 import os
@@ -41,9 +42,28 @@ print(float(np.max(np.abs(got - ref) / ref)))
 """
 
 
-def _child(_):
+#: a fresh process: import a port op (the import primes) and make the
+#: first threaded vector-math call through it, cylindrical_velocities'
+#: cos and sin over (4, 2^18) float32 rows (positions off the axis), with
+#: no engine built; held to the same op in float64 (every later call is
+#: exact) at 1e-5 of the largest velocity (exact calls reach 2.8e-7)
+_CHILD_PORT_OP = """
+import numpy as np, torch
+torch.set_num_threads(8)
+from soap_tpu_torch.ops import kinematics
+rng = np.random.default_rng(5)
+pos, vel = (torch.from_numpy(rng.uniform(0.5, 2.0, (4, 1 << 18, 3)).astype(np.float32))
+            for _ in range(2))
+L = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
+got = kinematics.cylindrical_velocities(pos, vel, L).numpy().astype(np.float64)
+ref = kinematics.cylindrical_velocities(pos.double(), vel.double(), L.double()).numpy()
+print(float(np.abs(got - ref).max() / np.abs(ref).max()))
+"""
+
+
+def _child(_, code=_CHILD):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return float(out.stdout.split()[-1])
@@ -54,6 +74,14 @@ def test_first_threaded_math_call_after_prime_is_exact():
         worst = list(pool.map(_child, range(N_PROCESSES)))
     bad = [w for w in worst if w > 1e-6]
     assert not bad, f"{len(bad)} of {N_PROCESSES} fresh processes inexact: {bad}"
+
+
+def test_first_threaded_call_of_a_port_op_is_exact_without_an_engine():
+    n = 40  # at the unprimed rate of ~1 in 20, 87% of 40-process runs catch it
+    with ThreadPoolExecutor(6) as pool:
+        worst = list(pool.map(lambda i: _child(i, _CHILD_PORT_OP), range(n)))
+    bad = [w for w in worst if w > 1e-5]
+    assert not bad, f"{len(bad)} of {n} fresh processes inexact: {bad}"
 
 
 def test_prime_is_exact_and_idempotent():

@@ -14,7 +14,8 @@ widest aperture.  The catalogue EncloseRadius handed to the comparison
 run is understated x0.3 for every halo: the sorted-prefix truncation
 then misses bound rows of the biggest halos, the bound-count
 cross-check flags them and they go round the x1.5 retry ladder
-untruncated.  The port-only checks use the true EncloseRadius and
+untruncated.  Keys compare at ``soap_tpu_torch/utils/parity.py``'s
+tolerances.  The port-only checks use the true EncloseRadius and
 unshrunk search radii, as a production run has them.
 """
 
@@ -32,41 +33,20 @@ from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.pipeline.chunk_data import chunk_from_numpy
 from soap_tpu_torch.pipeline.engine import HaloEngine
 from soap_tpu_torch.pipeline.specs import build_specs
+from soap_tpu_torch.utils.parity import key_close
 
 BN98 = 100.0
 SPECS = build_specs(None, True, BN98)
 KEYS = [(s.group, k) for s in SPECS for k in s.keys]
-#: keys compared at rtol 1e-5 (counts exactly); the rest sum in
-#: different orders with cancellation: rtol 1e-3, atol 1e-4 max|ref|
-TIGHT = ("r", "Mtot", "Mdm", "HalfMassRadiusTot", "HalfMassRadiusDM")
-COUNTS = ("Ndm",)
-
-
-def _close(a, b, key):
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    if a.shape != b.shape or not np.isfinite(b).all():
-        return False
-    if key in COUNTS:
-        return np.array_equal(a, b)
-    if key in TIGHT:
-        return np.allclose(b, a, rtol=1e-5, atol=0.0)
-    scale = np.abs(a).max() if a.size else 1.0
-    return np.allclose(b, a, rtol=1e-3, atol=1e-4 * max(scale, 1e-30))
-
-
 def _differing(ref, got):
     return [(s.group, k) for s in SPECS for k in s.keys
-            if not _close(ref[s.group][k], got[s.group][k], k)]
+            if not key_close(ref[s.group][k], got[s.group][k], k)]
 
 
-@pytest.fixture(scope="module")
-def runs():
+def dmo_inputs(uni):
+    """The JAX-staged dark-matter chunk of a mock universe (membership
+    from its bound particle lists) and the context's keywords."""
     G = mock_data.G_INTERNAL
-    uni = mock_data.build_mock_universe(
-        n_halos=16, n_field=8000, boxsize=25.0, seed=11, particle_mass=2.0,
-        mass_range=(300.0, 30000.0), n_satellites=2,
-    )
     groupnr = np.full(len(uni.ids), -1, dtype=np.int64)
     id_to_row = np.empty(int(uni.ids.max()) + 1, dtype=np.int64)
     id_to_row[uni.ids] = np.arange(len(uni.ids))
@@ -90,6 +70,16 @@ def runs():
         mean_density=rho_crit0 * uni.omega_m / uni.a**3,
         softening=(0.01,), ptypes=("PartType1",), capacities=(0,), dmo=True,
     )
+    return jchunk, ctx_kw
+
+
+@pytest.fixture(scope="module")
+def runs():
+    uni = mock_data.build_mock_universe(
+        n_halos=16, n_field=8000, boxsize=25.0, seed=11, particle_mass=2.0,
+        mass_range=(300.0, 30000.0), n_satellites=2,
+    )
+    jchunk, ctx_kw = dmo_inputs(uni)
     H = len(uni.halo_renclose)
     shrink = np.where(np.arange(H) % 3 == 0, 0.002, 1.0)
     enclose = uni.halo_renclose * uni.a
@@ -146,7 +136,7 @@ def test_full_key_matches_jax(runs, group, key):
     a = runs["ref"][group][key]
     b = runs["got"][group][key]
     assert b.shape == np.asarray(a).shape and b.shape[0] == runs["H"]
-    assert _close(a, b, key), f"{group}/{key}"
+    assert key_close(a, b, key), f"{group}/{key}"
 
 
 def test_enclose_radius_changes_no_value(runs):

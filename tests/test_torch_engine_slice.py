@@ -133,8 +133,18 @@ def test_unported_keys_and_specs_raise(runs):
     nu_chunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": pt, "PartType6": nu})
     with pytest.raises(NotImplementedError, match="PartType6"):
         HaloEngine(nu_ctx, nu_chunk, slice_specs(), "cpu").process(**runs["args"])
+    # core-excised SOs run since parameter files were ported; an SO type
+    # the engine has no definition for, and an aperture with both a
+    # fixed radius and a radius property, are refused
     core_excised = [HaloTypeSpec(kind="SO", group="SO/500_crit_ce", keys=("Mtot",),
                                  so_type="crit", so_multiple=500.0,
                                  core_excision_fraction=0.15, centrals_only=True)]
-    with pytest.raises(NotImplementedError, match="SO/500_crit_ce"):
-        HaloEngine(ctx, chunk, core_excised, "cpu")
+    HaloEngine(ctx, chunk, core_excised, "cpu")
+    unknown = [dataclasses.replace(core_excised[0], group="SO/odd", so_type="odd")]
+    with pytest.raises(NotImplementedError, match="SO/odd"):
+        HaloEngine(ctx, chunk, unknown, "cpu")
+    both = [HaloTypeSpec(kind="aperture", group="ExclusiveSphere/both", keys=("Mtot",),
+                         aperture_radius_mpc=0.05,
+                         radius_property=("BoundSubhalo", "HalfMassRadiusTot", 2.0))]
+    with pytest.raises(NotImplementedError, match="ExclusiveSphere/both"):
+        HaloEngine(ctx, chunk, both, "cpu")

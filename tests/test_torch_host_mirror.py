@@ -99,8 +99,17 @@ def test_hydro_mock_universe_byte_identical(seed):
 
 
 def test_port_imports_no_jax_soap_tpu_or_h5py():
+    """Importing the port, building its spec lists (the defaults and a
+    shipped JSON parameter file's) and a context from that file loads no
+    jax, soap_tpu, h5py or yaml; the import primes the CPU math library."""
     code = (
         "import sys\n"
+        "import soap_tpu_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
+        "assert not bad, bad\n"
+        "from soap_tpu_torch.ops import cpu_math\n"
+        "assert cpu_math._primed\n"
         "import soap_tpu_torch.pipeline.engine, soap_tpu_torch.ops.inertia_loop\n"
         "import soap_tpu_torch.pipeline.specs, soap_tpu_torch.utils.mock_data\n"
         "import soap_tpu_torch.ops.kinematics, soap_tpu_torch.core.registry\n"
@@ -110,8 +119,16 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "assert sum(len(s.keys) for s in specs) == 508\n"
         "specs = soap_tpu_torch.pipeline.specs.build_specs(None, False, 100.0)\n"
         "assert sum(len(s.keys) for s in specs) == 4729\n"
+        "from soap_tpu_torch.core.params import ParameterFile, parameter_file_path\n"
+        "params = ParameterFile(parameter_file_path('COLIBRE_THERMAL'))\n"
+        "specs = soap_tpu_torch.pipeline.specs.build_specs(params, False, 100.0)\n"
+        "assert sum(len(s.keys) for s in specs) == 4114\n"
+        "from soap_tpu_torch.utils.mock_data import build_mock_universe\n"
+        "uni = build_mock_universe(n_halos=2, n_field=200, boxsize=8.0, seed=3, hydro=True)\n"
+        "meta = soap_tpu_torch.pipeline.run.mock_metadata(uni)\n"
+        "soap_tpu_torch.pipeline.run.make_context(meta, ['PartType0'], False, params)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'soap_tpu', 'h5py')]\n"
+        "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -162,8 +179,18 @@ def test_build_specs_matches_original():
     theirs = jax_specs.build_specs(None, True, 123.5)
     assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in theirs]
     assert (len(ours), sum(len(s.keys) for s in ours)) == (38, 508)
-    with pytest.raises(NotImplementedError, match="parameter files"):
-        torch_specs.build_specs(object(), True, 123.5)
+    # a parameter file builds its own list (tests/test_torch_params.py
+    # holds every shipped file's to the JAX builder's)
+    from soap_tpu.core.params import ParameterFile as JaxParameterFile
+    from soap_tpu_torch.core.params import ParameterFile
+
+    raw = {"SOProperties": {"variations": {"200_crit": {"type": "crit", "value": 200.0}}}}
+    ours = torch_specs.build_specs(ParameterFile(parameter_dictionary=json.loads(
+        json.dumps(raw))), True, 123.5)
+    theirs = jax_specs.build_specs(JaxParameterFile(parameter_dictionary=json.loads(
+        json.dumps(raw))), True, 123.5)
+    assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in theirs]
+    assert [s.group for s in ours if s.kind == "SO"] == ["SO/200_crit"]
     ours = torch_specs.build_specs(None, False, 123.5)
     theirs = jax_specs.build_specs(None, False, 123.5)
     assert [dataclasses.asdict(s) for s in ours] == [dataclasses.asdict(s) for s in theirs]
@@ -252,3 +279,32 @@ def test_make_context_and_required_datasets_match(written_hydro_mock, dmo):
     got = torch_chunks.required_datasets(specs, ours)
     assert got == jax_required(jax_specs.build_specs(None, dmo, theirs.virBN98), theirs)
     assert ("Temperatures" in got.get("PartType0", ())) != dmo
+
+
+@pytest.mark.parametrize("name", ["COLIBRE_THERMAL", "FLAMINGO", "EAGLE"])
+def test_make_context_with_parameter_file_matches(written_hydro_mock, name):
+    """A parameter file's recently-heated and cold dense gas filters and
+    defined constants reach the context as in the JAX ``make_context``,
+    and its list needs the datasets the JAX run reads."""
+    from soap_tpu.core.params import ParameterFile as JaxParameterFile
+    from soap_tpu.pipeline.chunks import required_datasets as jax_required
+    from soap_tpu.pipeline.run import make_context as jax_make_context
+    from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
+    from soap_tpu_torch.pipeline import chunks as torch_chunks
+    from soap_tpu_torch.pipeline import run as torch_run
+
+    theirs = written_hydro_mock["meta"]
+    ours = torch_run.mock_metadata(written_hydro_mock["uni"])
+    params = ParameterFile(parameter_file_path(name))
+    jparams = JaxParameterFile(os.path.join(REPO, "parameter_files", f"{name}.yml"))
+    ptypes = ["PartType0", "PartType1", "PartType4", "PartType5"]
+    got = dataclasses.asdict(torch_run.make_context(ours, ptypes, False, params))
+    assert got == dataclasses.asdict(jax_make_context(theirs, ptypes, False, jparams))
+    # COLIBRE and EAGLE set Fe_H_sun and the cold dense gas filter;
+    # FLAMINGO's values are the defaults
+    default = dataclasses.asdict(torch_run.make_context(ours, ptypes, False))
+    assert (got == default) == (name == "FLAMINGO")
+    specs = torch_specs.build_specs(params, False, ours.virBN98)
+    assert torch_chunks.required_datasets(specs, ours) == jax_required(
+        jax_specs.build_specs(jparams, False, theirs.virBN98), theirs
+    )

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from soap_tpu.core.registry import full_property_table
 from soap_tpu.pipeline import chunk_data as jcd
 from soap_tpu.utils import mock_data
 from soap_tpu_torch.pipeline import chunk_data as tcd
@@ -110,24 +111,31 @@ def test_presize_and_count_match(staged, presize):
     assert (b_t[0] <= c_t[0]).all() and (b_t[0] < c_t[0]).any()
 
 
-@pytest.fixture(scope="module")
-def hydro_staged(tmp_path_factory):
-    """One hydro mock staged twice: by the JAX pipeline from its written
-    snapshot and membership file (every cell read, StellarAges derived
-    as ``soap_tpu.pipeline.chunks`` derives them), and by the port from
-    the in-memory universe."""
+def _stage_both(tmp, parameter_file=None):
+    """One hydro mock staged twice for a spec list (the default hydro one,
+    or a shipped parameter file's): by the JAX pipeline from its written
+    snapshot and membership file (every cell read, the datasets the JAX
+    list needs that the snapshot has, StellarAges derived as
+    ``soap_tpu.pipeline.chunks`` derives them), and by the port from the
+    in-memory universe.  Returns both and the two lists' wanted datasets."""
     import os
 
+    from soap_tpu.core.params import ParameterFile as JaxParameterFile
     from soap_tpu.io.swift_snapshot import SnapshotMetadata, read_masked_cells
     from soap_tpu.pipeline.chunks import required_datasets as jax_required
     from soap_tpu.pipeline.membership import run_group_membership
     from soap_tpu.pipeline.specs import build_specs as jax_build_specs
+    from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
     from soap_tpu_torch.pipeline import chunks as tchunks
     from soap_tpu_torch.pipeline import run as trun
     from soap_tpu_torch.pipeline.specs import build_specs
     from soap_tpu_torch.utils.mock_data import build_mock_universe
 
-    tmp = str(tmp_path_factory.mktemp("hydro_stage"))
+    jparams = params = None
+    if parameter_file is not None:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        jparams = JaxParameterFile(os.path.join(repo, "parameter_files", f"{parameter_file}.yml"))
+        params = ParameterFile(parameter_file_path(parameter_file))
     kw = dict(n_halos=5, n_field=2000, boxsize=16.0, seed=61, hydro=True, n_satellites=1)
     sim = mock_data.make_mock_simulation(tmp, **kw)
     mem = os.path.join(tmp, "membership.hdf5")
@@ -137,7 +145,8 @@ def hydro_staged(tmp_path_factory):
     fields_per_type = {
         pt: [f for f in tchunks.BASE_FIELDS if f in meta.datasets[pt]] for pt in ptypes
     }
-    for pt, names in jax_required(jax_build_specs(None, False, meta.virBN98), meta).items():
+    jspecs = jax_build_specs(jparams, False, meta.virBN98)
+    for pt, names in jax_required(jspecs, meta).items():
         fields_per_type[pt] += [n for n in names if n not in fields_per_type[pt]]
     data = read_masked_cells(meta, np.ones(meta.nr_cells, bool), fields_per_type)
     H0 = meta.cosmology_attrs["H0 [internal units]"]
@@ -155,11 +164,36 @@ def hydro_staged(tmp_path_factory):
                                       meta.boxsize)
     uni = build_mock_universe(**kw)
     tmeta = trun.mock_metadata(uni)
-    host = tchunks.mock_fields(
-        uni, build_specs(None, False, tmeta.virBN98), tmeta, ptypes, trun.age_table(tmeta)
-    )
+    specs = build_specs(params, False, tmeta.virBN98)
+    host = tchunks.mock_fields(uni, specs, tmeta, ptypes, trun.age_table(tmeta))
     port = tchunks.stage_chunk(host, uni.boxsize, torch.device("cpu"))
-    return jax_pts, port
+    wanted = {ds for s in jspecs for k in s.keys
+              for ds in full_property_table()[k].particle_properties}
+    return jax_pts, port, wanted, meta
+
+
+@pytest.fixture(scope="module")
+def hydro_staged(tmp_path_factory):
+    return _stage_both(str(tmp_path_factory.mktemp("hydro_stage")))[:2]
+
+
+@pytest.fixture(scope="module", params=["COLIBRE_THERMAL", "FLAMINGO"])
+def params_staged(request, tmp_path_factory):
+    return _stage_both(str(tmp_path_factory.mktemp("params_stage")), request.param)
+
+
+def test_parameter_file_staging_bit_equal_to_jax_pipeline(params_staged):
+    """A parameter file's list stages the datasets the JAX reader reads:
+    those its keys need that the snapshot has (the mock lacks some that
+    the lists ask for, and both sides leave them out alike)."""
+    jax_pts, port, wanted, meta = params_staged
+    have = {f"{pt}/{n}" for pt, d in meta.datasets.items() for n in d}
+    assert wanted - have  # the list asks for datasets this snapshot lacks
+    for ptype in ("PartType0", "PartType1", "PartType4", "PartType5"):
+        jpt, tpt = jax_pts[ptype], port.ptypes[ptype]
+        assert (tpt.cols_f, tpt.cols_i) == (jpt.cols_f, jpt.cols_i), ptype
+        rows = np.asarray(jpt.packed_lines).reshape(-1, jpt.row_width)
+        assert rows.tobytes() == tpt.packed.numpy().tobytes(), ptype
 
 
 @pytest.mark.parametrize("ptype", ["PartType0", "PartType1", "PartType4", "PartType5"])
