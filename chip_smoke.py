@@ -39,6 +39,13 @@ Phases, each printing its lines and raising on failure:
     of four core-excised SOs, a 50 kpc fixed-radius SO and the apertures
     of twice the stellar half-mass radius, with K2 launched for the
     core-excised family and the property-sized apertures;
+ 5e. the entry's in-memory half (``pipeline/run.py::build_catalogue``) on
+    the GPU against the CPU: the DMO list on phase 5's mock and
+    FLAMINGO's file on phase 5h's, each from the mock's metadata, HBTplus
+    catalogue and fields as the JAX readers read them back from its files;
+    the two catalogues have the same datasets, dtypes, shapes and
+    attributes, exactly equal sort order, passthrough, SOAP/* and integer
+    columns, and floats within utils/parity.py's tolerances;
  6. the main path: bench.py::bench_dmo's run (2048 halos, 9.62M
     particles, the full spec list of 38 calculations and 508 keys, with
     EncloseRadius): a warm pass, then TIMED_PASSES timed passes, each
@@ -62,7 +69,16 @@ Phases, each printing its lines and raising on failure:
     tensor, so K2 does not run on it; K1 must launch for every type;
  10. the COLIBRE every-key path: the same universe with phase 5p's
     every-key list (11 calculations, 1390 keys), where K2 runs for the
-    core-excised SO family and the property-sized spheres at full size.
+    core-excised SO family and the property-sized spheres at full size;
+ 11. the DMO entry: phase 6's universe through build_catalogue with its
+    own mock HBTplus catalogue and the default DMO list: a warm pass,
+    TIMED_PASSES timed passes reporting entry halos/s, the seconds before,
+    in and after the engine, peak memory and the launches, then a
+    checked pass holding every K1 and K2 call against its plain version;
+ 12. the FLAMINGO entry: phase 8's universe with FLAMINGO's list and
+    context (5 cMpc read radius floor, category filters at 100
+    particles, disabled keys dropped, the reduced-snapshot flag, K2 for
+    the bound subhalo), the same passes with HYDRO_TIMED_PASSES.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -91,11 +107,15 @@ from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
 from soap_tpu_torch.pipeline.chunks import mock_fields, stage_chunk
 from soap_tpu_torch.pipeline.engine import HaloEngine
-from soap_tpu_torch.pipeline.run import age_table, make_context, mock_metadata
+from soap_tpu_torch.pipeline.run import (
+    age_table, build_catalogue, entry_plan, make_context, mock_catalogue, mock_metadata,
+)
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import build_mock_universe
-from soap_tpu_torch.utils.parity import is_loose, key_close, scaled_error
+from soap_tpu_torch.utils.parity import (
+    catalogue_differences, is_loose, key_close, scaled_error,
+)
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
@@ -115,6 +135,11 @@ GIANT = dict(
 HYDRO = dict(
     n_halos=2048, n_field=100_000, boxsize=100.0, seed=20260817, hydro=True,
     mass_range=(3.2, 3000.0),
+)
+#: phase 5's DMO mock (satellites, coarse particles over a wide mass range)
+ENGINE_MOCK = dict(
+    n_halos=64, n_field=20000, boxsize=40.0, seed=ENGINE_SEED, particle_mass=2.0,
+    mass_range=(300.0, 30000.0), n_satellites=2,
 )
 #: phase 5h's small hydro mock (tests/test_torch_engine_hydro.py's)
 HYDRO_SMALL = dict(
@@ -446,10 +471,7 @@ def engine_case(where):
     aperture) and every catalogue EncloseRadius understated x0.3, so the
     truncation misses bound rows of the biggest halos and the bound-count
     cross-check sends them round the x1.5 retry ladder."""
-    uni = build_mock_universe(
-        n_halos=64, n_field=20000, boxsize=40.0, seed=ENGINE_SEED,
-        particle_mass=2.0, mass_range=(300.0, 30000.0), n_satellites=2,
-    )
+    uni = build_mock_universe(**ENGINE_MOCK)
     ctx, chunk, args, specs = _bench_inputs(uni, torch.device(where))
     H = len(uni.halo_renclose)
     args["is_central"] = (np.arange(H) % 4 != 0) & (np.asarray(uni.halo_rank) == 0)
@@ -700,7 +722,7 @@ def phase_main(dev):
     run = drive_path("main", uni.n_halos, _bench_inputs(uni, dev), dev)
     if not (run["res"]["BoundSubhalo"]["Mtot"] > 0).all():
         raise AssertionError("BoundSubhalo/Mtot not positive for every halo")
-    return run
+    return run, uni
 
 
 def phase_giant(dev):
@@ -794,6 +816,168 @@ def phase_colibre_every_key(dev, uni):
     return run
 
 
+def entry_inputs(uni, dmo, parameter_file=None):
+    """The entry's in-memory inputs for a mock universe: its metadata and
+    HBTplus catalogue as the JAX readers read them back from its files
+    (``mock_metadata``, ``mock_catalogue``), the host fields of
+    ``entry_plan``'s types and list, and the parameter file (a shipped
+    one by name, or none: the defaults)."""
+    meta = mock_metadata(uni)
+    params = None if parameter_file is None else ParameterFile(
+        parameter_file_path(parameter_file))
+    ptypes, specs = entry_plan(meta, dmo, params)
+    host = mock_fields(uni, specs, meta, ptypes, age_table(meta))
+    return dict(meta=meta, cat=mock_catalogue(uni), host=host, specs=specs, params=params,
+                dmo=dmo)
+
+
+def run_entry(inputs, device):
+    i = inputs
+    return build_catalogue(i["meta"], i["cat"], i["host"], i["specs"], i["params"], i["dmo"],
+                           device=device)
+
+
+def phase_entry(dev):
+    """Phase 5e: ``build_catalogue`` on the GPU against the CPU, with the
+    DMO list on phase 5's mock and FLAMINGO's file on phase 5h's."""
+    for tag, mock, dmo, pf in (("DMO list", ENGINE_MOCK, True, None),
+                               ("FLAMINGO", HYDRO_SMALL, False, "FLAMINGO")):
+        uni = build_mock_universe(**mock)
+        ref = run_entry(entry_inputs(uni, dmo, pf), "cpu")
+        rg.launches = il.launches = 0
+        got = run_entry(entry_inputs(uni, dmo, pf), dev)
+        n1, n2 = rg.launches, il.launches
+        diffs = catalogue_differences(ref.catalogue, got.catalogue)
+        if diffs:
+            raise AssertionError(f"entry {tag}: GPU catalogue differs from CPU: {diffs[:10]}")
+        if not np.array_equal(ref.order, got.order):
+            raise AssertionError(f"entry {tag}: sort orders differ")
+        if n1 == 0 or n2 == 0:
+            raise AssertionError(f"entry {tag}: GPU run bypassed a kernel: K1 {n1}, K2 {n2}")
+        cat = got.catalogue
+        say("entry", f"{tag}: {cat.n_halos} halos, {len(cat.datasets)} datasets, "
+            f"{len(cat.groups)} groups: GPU == CPU (names, dtypes, shapes, attributes; "
+            f"exact sort, passthrough, SOAP/* and integers; floats within tolerance); "
+            f"counters {_counters(got.stats)}; launches K1 {n1}, K2 {n2}")
+
+
+def drive_entry(tag, inputs, dev, timed):
+    """One path through the entry's in-memory half: a warm pass, then
+    ``timed`` timed passes (each with the launch counters set to 0 just
+    before it and read just after), then a checked pass (PathCheck).
+    Reports halos/s over the whole entry and its seconds before, in and
+    after the engine."""
+    specs, H = inputs["specs"], inputs["cat"].nr_halos
+    say(tag, f"spec list: {len(specs)} calculations, {sum(len(s.keys) for s in specs)} keys; "
+        f"{H} halos; {sum(len(p) for p, _ in inputs['host'].values())} particles")
+    t0 = time.perf_counter()
+    run_entry(inputs, dev)
+    torch.cuda.synchronize()
+    say(tag, f"warm pass {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rates, parts = [], []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        rg.launches = il.launches = 0
+        il.cluster_launches.clear()
+        hs.k2_launches_by_config.clear()
+        t0 = time.perf_counter()
+        out = run_entry(inputs, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
+        if launches["range_gather"] == 0 or (launches["inertia_loop"] > 0) != uses_k2(specs):
+            raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
+        rates.append(H / dt)
+        parts.append((out.prep_seconds, out.stage_seconds, out.engine_seconds, out.post_seconds))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cat = out.catalogue
+    if cat.n_halos != H:
+        raise AssertionError(f"{tag}: {cat.n_halos} halos in the catalogue, not {H}")
+    for path, ds in cat.datasets.items():
+        data = np.asarray(ds.data)
+        if path.split("/")[0] != "Cells" and (data.shape[0] != H or not np.isfinite(
+                data.astype(np.float64)).all()):
+            raise AssertionError(f"{tag} {path}: shape {data.shape} or non-finite")
+    with PathCheck() as check:
+        run_entry(inputs, dev)
+        torch.cuda.synchronize()
+    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
+        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
+                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    med = np.median(np.array(parts), 0)
+    say(tag, f"{H} halos: entry halos/s over {timed} timed passes median "
+        f"{np.median(rates):.2f} (min {min(rates):.2f}, max {max(rates):.2f}; "
+        f"{', '.join(f'{r:.2f}' for r in rates)}); median seconds: before the engine "
+        f"{med[0]:.4f}, staging {med[1]:.4f}, engine {med[2]:.4f}, after it (filters, sort, "
+        f"derived columns, catalogue) {med[3]:.4f}, post-processing share "
+        f"{med[3] / med.sum():.4f}; {_counters(out.stats)}; peak device memory {peak:.2f} "
+        f"GiB; launches per pass {launches}, K1 by type "
+        f"{dict(sorted(out.stats.k1_launches_by_ptype.items()))}, K2 by family "
+        f"{dict(sorted(out.stats.k2_launches_by_group.items()))}; {len(cat.datasets)} datasets")
+    say(tag, f"checked pass, every call against its plain version: K1 bit-equal at "
+        f"{check.k1['shapes']}; K2 within rtol {K2_RTOL} at {check.k2['shapes']} (max abs "
+        f"err {check.k2['max_abs_err']:.3e})")
+    return dict(out=out, launches=launches,
+                check={"range_gather": check.k1, "inertia_loop": check.k2})
+
+
+def _sorted_cells(cat, meta):
+    """The top-level cell of each catalogue row (the sort's first key)."""
+    n = int(meta.dimension[0])
+    centres = np.mod(cat.datasets["InputHalos/HaloCentre"].data, meta.boxsize)
+    ijk = np.clip(np.floor(centres / (meta.boxsize / n)).astype(np.int64), 0, n - 1)
+    return (ijk[:, 0] * n + ijk[:, 1]) * n + ijk[:, 2]
+
+
+def phase_entry_main(dev, uni):
+    """Phase 11: the main path's universe through the entry with the
+    default DMO list."""
+    t0 = time.perf_counter()
+    inputs = entry_inputs(uni, True)
+    say("main-entry", f"inputs built in {time.perf_counter() - t0:.1f} s")
+    run = drive_entry("main-entry", inputs, dev, TIMED_PASSES)
+    cat = run["out"].catalogue
+    idx = cat.datasets["InputHalos/HaloCatalogueIndex"].data
+    ndm = cat.datasets["BoundSubhalo/NumberOfDarkMatterParticles"].data
+    if not np.array_equal(ndm, np.asarray(uni.halo_nbound)[idx]):
+        raise AssertionError("main-entry BoundSubhalo/NumberOfDarkMatterParticles != Nbound")
+    if not (np.diff(_sorted_cells(cat, inputs["meta"])) >= 0).all():
+        raise AssertionError("main-entry catalogue not in cell order")
+    central = cat.datasets["InputHalos/IsCentral"].data == 1
+    if not (cat.datasets["SO/200_crit/SORadius"].data[central] > 0).all():
+        raise AssertionError("main-entry SO/200_crit/SORadius not positive for every central")
+    return run
+
+
+def phase_entry_flamingo(dev, uni):
+    """Phase 12: the hydro path's universe through the entry with
+    FLAMINGO's list and context (its 5 cMpc read radius floor, category
+    filters at 100 particles, disabled keys dropped, the reduced-snapshot
+    flag, K2 for the bound subhalo)."""
+    t0 = time.perf_counter()
+    inputs = entry_inputs(uni, False, "FLAMINGO")
+    say("flamingo-entry", f"inputs built in {time.perf_counter() - t0:.1f} s")
+    run = drive_entry("flamingo-entry", inputs, dev, HYDRO_TIMED_PASSES)
+    out = run["out"]
+    cat = out.catalogue
+    flag = cat.datasets["SOAP/IncludedInReducedSnapshot"].data
+    masked = [p for p, d in cat.datasets.items() if d.attrs.get("Masked") is True]
+    if not masked or any(cat.datasets[p].attrs["Mask Threshold"] != 100 for p in masked):
+        raise AssertionError("flamingo-entry: no dataset masked at 100 particles")
+    if not set(np.unique(flag)) <= {0, 1}:
+        raise AssertionError("flamingo-entry: IncludedInReducedSnapshot not a flag")
+    if len(out.stats.k1_launches_by_ptype) != 4 or \
+            out.stats.k2_launches_by_group.get("BoundSubhalo", 0) == 0:
+        raise AssertionError(f"flamingo-entry: K1 by type {out.stats.k1_launches_by_ptype}, "
+                             f"K2 by family {out.stats.k2_launches_by_group}")
+    if not (cat.datasets["BoundSubhalo/TotalMass"].data > 0).all():
+        raise AssertionError("flamingo-entry BoundSubhalo/TotalMass not positive")
+    say("flamingo-entry", f"{len(masked)} datasets masked at 100 particles; "
+        f"{int(flag.sum())} of {cat.n_halos} halos in the reduced snapshot")
+    return run
+
+
 def phase_profile(dev, tag, inputs):
     """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
@@ -842,26 +1026,31 @@ def main():
     phase_engine(dev)
     phase_engine_hydro(dev)
     phase_engine_params(dev)
-    main_run = phase_main(dev)
+    phase_entry(dev)
+    main_run, main_uni = phase_main(dev)
     giant_run = phase_giant(dev)
     hydro_run, hydro_uni = phase_hydro(dev)
     colibre_run = phase_colibre(dev, hydro_uni)
     every_key_run = phase_colibre_every_key(dev, hydro_uni)
+    main_entry_run = phase_entry_main(dev, main_uni)
+    flamingo_entry_run = phase_entry_flamingo(dev, hydro_uni)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
         phase_profile(dev, "colibre", colibre_run["inputs"])
 
     # launches: the main path's count; giant_path_launches,
-    # hydro_path_launches, colibre_path_launches and
-    # colibre_every_key_path_launches: those paths';
+    # hydro_path_launches, colibre_path_launches,
+    # colibre_every_key_path_launches, main_entry_path_launches and
+    # flamingo_entry_path_launches: those paths';
     # path_checks: each path's checked
     # pass (calls, max abs err against the plain version, the shapes it
     # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
     # library_ms: the phase-3/4 cell's.  The giant K2 cell stands for the streaming TPU
     # kernel.
     runs = {"main": main_run, "giant": giant_run, "hydro": hydro_run,
-            "colibre": colibre_run, "colibre-every-key": every_key_run}
+            "colibre": colibre_run, "colibre-every-key": every_key_run,
+            "main-entry": main_entry_run, "flamingo-entry": flamingo_entry_run}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -880,6 +1069,8 @@ def main():
                     hydro_path_launches=hydro_run["launches"][name],
                     colibre_path_launches=colibre_run["launches"][name],
                     colibre_every_key_path_launches=every_key_run["launches"][name],
+                    main_entry_path_launches=main_entry_run["launches"][name],
+                    flamingo_entry_path_launches=flamingo_entry_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

@@ -14,8 +14,8 @@ package's JSON copies needs no yaml.  The five production files ship as
 JSON (``parameter_file_path``): each is what ``yaml.safe_load`` returns
 for ``parameter_files/<name>.yml``, quirks included (YAML 1.1 reads
 exponents without a dot, such as ``3.16e4``, as strings).  The
-``.used_parameters`` mirror (``write_parameters``) belongs to the
-catalogue writer and is not ported.
+``.used_parameters`` mirror (``write_parameters``) imports yaml when
+it writes.
 """
 
 from __future__ import annotations
@@ -149,6 +149,14 @@ class ParameterFile:
 
     def get_parameters(self) -> Dict:
         return dict(self.parameters)
+
+    def write_parameters(self, file_name: str = "SOAP.used_parameters.yml") -> None:
+        """The parameters as YAML (the ``.used_parameters`` mirror), with
+        the entries ``get_property_filters`` filled in."""
+        import yaml
+
+        with open(file_name, "w") as f:
+            yaml.safe_dump(self.parameters, f)
 
     # ---- property selection ----
     def get_property_filters(

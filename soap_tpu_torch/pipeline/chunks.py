@@ -1,12 +1,14 @@
 """A chunk's particle inputs on the host, then staged on a device.
 
 The port's copies of ``soap_tpu/pipeline/chunks.py``'s
-``required_datasets`` and of the host-side ``StellarAges`` derivation,
-and ``mock_fields``: what the JAX package's reader hands its chunk
-staging for a mock universe (every cell read, each particle type in the
-snapshot's canonical cell order, the datasets the specs need plus the
-membership's ``GroupNr_bound``), built in memory with no file and no
-h5py.  ``stage_chunk`` stages those fields on a device.
+``required_datasets``, of its one-chunk read and of the host-side
+``StellarAges`` derivation.  ``read_chunk_fields`` reads what the JAX
+run reads from a snapshot and its membership file for one chunk: the
+cells within ``READ_MARGIN`` search radii of any halo, each particle
+type in ascending cell order, serially.  ``mock_fields`` builds what
+that read hands over for a mock universe with every cell read, in
+memory with no file and no h5py.  ``stage_chunk`` stages either on a
+device.
 """
 
 from __future__ import annotations
@@ -17,13 +19,17 @@ import numpy as np
 import torch
 
 from soap_tpu_torch.core.registry import full_property_table
+from soap_tpu_torch.io import swift_snapshot
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
+from soap_tpu_torch.pipeline.engine import READ_RADIUS_FACTOR, min_physical_radius
+from soap_tpu_torch.utils.mock_data import MOCK_CELLS_PER_DIM
 
 #: fields every run reads per particle type (the DMO tier)
 BASE_FIELDS = ["Coordinates", "Masses", "Velocities", "GroupNr_bound", "FOFGroupIDs"]
 
-#: top-level cells per dimension of the mock snapshot's layout
-MOCK_CELLS_PER_DIM = 4
+#: factor applied to search radii when masking cells to read: leaves head
+#: room for the engine's x1.5 retry ladder without re-reading
+READ_MARGIN = 4.0
 
 
 def required_datasets(specs, meta) -> Dict[str, List[str]]:
@@ -64,6 +70,39 @@ def stellar_ages(
     age_a, age_t = age_table
     t_now = np.interp(float(a), age_a, age_t)
     return np.maximum(t_now - np.interp(birth_a, age_a, age_t), 0.0).astype(np.float32)
+
+
+def read_chunk_fields(
+    meta: swift_snapshot.SnapshotMetadata,
+    cat,
+    specs,
+    ptypes: Sequence[str],
+    age_table: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Dict[str, Tuple[np.ndarray, Dict[str, np.ndarray]]]:
+    """{ptype: (comoving positions (N, 3) f64 in [0, box), {dataset: array})}
+    read from the snapshot and its extra inputs for the halos of ``cat``
+    (a ``HaloCatalogue``), as ``mock_fields`` returns them: the cells
+    within ``READ_MARGIN`` search radii of a halo (at least two retry
+    steps past the largest fixed physical radius), plus half a cell;
+    ``fields_per_type``'s datasets; the derived ``StellarAges`` when
+    ``age_table`` is given."""
+    floor_com = min_physical_radius(specs) / meta.a
+    mask = meta.mask_cells_for_spheres(
+        np.mod(cat.cofp, meta.boxsize),
+        np.maximum(cat.search_radius * READ_MARGIN, floor_com * READ_RADIUS_FACTOR**2)
+        + 0.5 * float(np.max(meta.cell_size)),
+    )
+    data = swift_snapshot.read_masked_cells(meta, mask, fields_per_type(specs, meta, ptypes))
+    out = {}
+    for pt in ptypes:
+        fields = {
+            name: arr for name, arr in data[pt].items()
+            if name not in ("Coordinates", "__cells__")
+        }
+        if pt == "PartType4" and age_table is not None and "BirthScaleFactors" in fields:
+            fields["StellarAges"] = stellar_ages(fields["BirthScaleFactors"], age_table, meta.a)
+        out[pt] = (np.mod(data[pt]["Coordinates"], meta.boxsize), fields)
+    return out
 
 
 def _snapshot_order(pos: np.ndarray, boxsize: float) -> np.ndarray:

@@ -1,26 +1,52 @@
-"""A run's host context: snapshot metadata -> ``HaloContext``.
+"""The halo-properties entry on one chunk: inputs in, SOAP catalogue out.
 
-The port's copy of ``soap_tpu/pipeline/run.py::make_context`` (with
-``DEFAULT_CONSTANTS``) and of the stellar-age table the JAX run hands
-its chunk staging.  ``make_context`` takes any metadata object shaped
-like the JAX package's ``SnapshotMetadata`` (duck-typed: the HDF5
-reader is not ported); ``mock_metadata`` builds one for a mock universe
-from the values its snapshot would record, without writing a file.
-A parameter file (``core/params.py::ParameterFile``) sets the
-recently-heated and cold dense gas filters and the defined constants;
-without one they take their defaults.
+The port's copy of ``soap_tpu/pipeline/run.py``, for one chunk, one
+device and HBTplus catalogues, in two halves:
+
+- ``build_catalogue`` (torch and numpy only; runs on the card): from a
+  snapshot-metadata object, a ``HaloCatalogue``, the host particle
+  fields of the chunk and the spec list, it runs the engine, the
+  category filters, ``drop_disabled_keys``, the spatial sort and the
+  derived ``SOAP/*`` columns, and returns the sorted, unit-annotated
+  ``io/catalogue.py::Catalogue``;
+- ``compute_halo_properties`` (the JAX signature): reads the SWIFT
+  snapshot, the membership file and the HBTplus catalogues, calls
+  ``build_catalogue`` and writes the catalogue and the
+  ``SOAP.used_parameters.yml`` mirror.  Only this half opens files;
+  h5py and yaml are imported inside the functions that do.
+
+``make_context`` turns snapshot metadata into the engine's
+``HaloContext`` (a parameter file sets the recently-heated and cold
+dense gas filters and the defined constants); ``mock_metadata`` and
+``mock_catalogue`` give a mock universe's metadata and catalogue as the
+JAX readers read them back from its written files, without a file.
 """
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from soap_tpu_torch.core.category_filter import DEFAULT_FILTERS, CategoryFilter
 from soap_tpu_torch.core.cosmology import Cosmology
 from soap_tpu_torch.core.params import ParameterFile
+from soap_tpu_torch.core.registry import full_property_table
+from soap_tpu_torch.core.units import UnitRegistry
+from soap_tpu_torch.io.catalogue import Catalogue, make_catalogue, spatial_sort_order
+from soap_tpu_torch.io.fof_catalogue import fof_join
+from soap_tpu_torch.io.halo_catalogue import HaloCatalogue, hbtplus_catalogue
 from soap_tpu_torch.models.context import HaloContext
+from soap_tpu_torch.pipeline import derived
+from soap_tpu_torch.pipeline.chunks import read_chunk_fields, stage_chunk
+from soap_tpu_torch.pipeline.engine import EngineStats, HaloEngine, HaloTypeSpec, min_physical_radius
+from soap_tpu_torch.pipeline.specs import build_specs
 from soap_tpu_torch.utils import mock_data
 
 #: default solar abundance ratios (a parameter file's defined_constants
@@ -41,9 +67,11 @@ _M_H_G = 1.67262192369e-24
 
 @dataclass
 class SnapshotInfo:
-    """The snapshot metadata ``make_context`` and ``required_datasets``
-    read, by the attribute names of the JAX package's
-    ``SnapshotMetadata``; every value is in snapshot units."""
+    """The snapshot metadata the entry reads (``make_context``,
+    ``required_datasets``, the sort and the catalogue), by the attribute
+    names of the JAX package's ``SnapshotMetadata``
+    (``io/swift_snapshot.py`` reads them from a file); every value is in
+    snapshot units."""
 
     a: float
     z: float
@@ -64,6 +92,14 @@ class SnapshotInfo:
     named_columns: Dict[str, list]
     ptypes: list
     datasets: Dict[str, Dict[str, Tuple[int, ...]]]  # ptype -> name -> row shape
+    header: Dict[str, object]  # the Header group's attributes, as stored
+    parameters: Dict[str, object]  # the Parameters group's, as stored
+    code_units_cgs: Dict[str, float]
+    nr_cells: int
+    dimension: np.ndarray  # (3,) top-level cells per dimension
+    cell_size: np.ndarray  # (3,) comoving
+    cell_centres: np.ndarray  # (nr_cells, 3) comoving
+    units: UnitRegistry
 
 
 #: datasets the membership pass adds to every particle type
@@ -96,6 +132,9 @@ def mock_metadata(uni: mock_data.MockUniverse) -> SnapshotInfo:
     for names in datasets.values():
         names.update(MEMBERSHIP_DATASETS)
     used = {name for names in datasets.values() for name in names}
+    n = mock_data.MOCK_CELLS_PER_DIM
+    units = UnitRegistry(attrs["Units"], attrs["Units"], a, float(cosmo_attrs["h"]),
+                         attrs["PhysicalConstants/CGS"])
     return SnapshotInfo(
         a=a,
         z=1.0 / a - 1.0,
@@ -124,7 +163,42 @@ def mock_metadata(uni: mock_data.MockUniverse) -> SnapshotInfo:
         named_columns={k: list(v) for k, v in mock_data.NAMED_COLUMNS.items() if k in used},
         ptypes=sorted(datasets),
         datasets=datasets,
+        header=mock_data.snapshot_header(uni),
+        parameters={k: np.bytes_(v) for k, v in sorted(mock_data.MOCK_PARAMETER_TEXT.items())},
+        code_units_cgs=dict(attrs["Units"]),
+        nr_cells=n**3,
+        dimension=np.full(3, n, dtype=np.int64),
+        cell_size=np.full(3, uni.boxsize / n),
+        cell_centres=mock_data.cell_centres(uni.boxsize, n),
+        units=units,
     )
+
+
+def mock_catalogue(uni: mock_data.MockUniverse) -> HaloCatalogue:
+    """The catalogue ``read_hbtplus_catalogue`` reads back from this
+    universe's HBTplus file as the JAX package's mock writer writes it
+    (Mpc/h and Msun/h in float32, unit factors 1)."""
+    n = uni.n_halos
+    zeros_i32 = np.zeros(n, np.int32)
+    subs = {
+        "TrackId": np.asarray(uni.halo_track, np.int64),
+        "Nbound": np.asarray(uni.halo_nbound, np.int64),
+        "Rank": np.asarray(uni.halo_rank).astype(np.int64),
+        "HostHaloId": np.asarray(uni.halo_host, np.int64),
+        "Depth": np.asarray(uni.halo_depth).astype(np.int32),
+        "ComovingMostBoundPosition": (uni.halo_pos * uni.h).astype(np.float32),
+        "PhysicalAverageVelocity": np.zeros((n, 3), np.float32),
+        "REncloseComoving": (uni.halo_renclose * uni.h).astype(np.float32),
+        "NestedParentTrackId": np.full(n, -1, np.int64),
+        "DescendantTrackId": np.full(n, -1, np.int64),
+        "LastMaxMass": (uni.halo_nbound * uni.mass[0] * 1.0e10 * uni.h).astype(np.float32),
+        "LastMaxVmaxPhysical": np.full(n, 100.0, np.float32),
+        "SnapshotOfBirth": zeros_i32,
+        "SnapshotOfLastMaxMass": zeros_i32,
+        "SnapshotOfLastMaxVmax": zeros_i32,
+        "SnapshotOfLastIsolation": zeros_i32,
+    }
+    return hbtplus_catalogue(subs, float(uni.h))
 
 
 def make_context(
@@ -215,3 +289,431 @@ def age_table(meta) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         return None
     age_a, age_h0 = meta.cosmology.age_table()
     return age_a.astype(np.float32), (age_h0 / H0_internal).astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# The entry: category filters, sort, derived columns, catalogue
+# ----------------------------------------------------------------------
+
+#: output group prefix -> parameter-file base halo type (reference
+#: ``category_filter.py:158-165``)
+GROUP_TO_BASE = {
+    "BoundSubhalo": "SubhaloProperties",
+    "SO": "SOProperties",
+    "ExclusiveSphere": "ApertureProperties",
+    "InclusiveSphere": "ApertureProperties",
+    "ProjectedAperture": "ProjectedApertureProperties",
+}
+
+#: the halo finders the entry reads
+HALO_FORMATS = ("HBTplus",)
+
+
+def _check_halo_format(halo_format: str) -> None:
+    if halo_format not in HALO_FORMATS:
+        raise NotImplementedError(
+            f"halo_format {halo_format!r}: the port reads HBTplus only; the other "
+            "finders' readers come with ROADMAP queue 1's membership item")
+
+
+def apply_category_filters(
+    results: Dict[str, Dict[str, np.ndarray]],
+    cat_filter: CategoryFilter,
+    parameter_file: Optional[ParameterFile],
+    n_halos: int,
+    specs: Optional[Sequence[HaloTypeSpec]] = None,
+) -> tuple:
+    """Zero out masked halos in place; return (dataset_attrs, group_attrs).
+
+    Two masking levels, both from BoundSubhalo particle counts: each
+    property's category from the parameter file (by output name), in its
+    dataset's ``Masked`` / ``Mask *`` attributes, and each spec's
+    ``halo_filter``, which zeroes its whole group for the halos failing
+    it and is recorded in the group's attributes."""
+    masks = cat_filter.category_masks(results.get("BoundSubhalo", {}), n_halos)
+    attrs: Dict[str, Dict[str, object]] = {}
+    group_attrs: Dict[str, Dict[str, object]] = {}
+    table = full_property_table()
+    halo_filters = {s.group: s.halo_filter for s in (specs or ())}
+    for group, props in results.items():
+        base = GROUP_TO_BASE.get(group.split("/")[0])
+        categories: Dict[str, object] = {}
+        if parameter_file is not None and base is not None:
+            categories = parameter_file.get_property_filters(
+                base, [table[k].name for k in props.keys()]
+            )
+        halo_filter = halo_filters.get(group, "basic")
+        group_attrs[group] = cat_filter.filter_metadata(
+            halo_filter if halo_filter != "basic" else None
+        )
+        halo_mask = masks.get(halo_filter)
+        for key in list(props):
+            name = table[key].name
+            category = categories.get(name, "basic")
+            if category is False or not isinstance(category, str):
+                category = "basic"
+            attrs[f"{group}/{name}"] = cat_filter.filter_metadata(category)
+            mask = masks.get(category, masks["basic"])
+            if halo_mask is not None:
+                mask = mask & halo_mask
+            if not mask.all():
+                arr = props[key]
+                keep = mask.reshape((-1,) + (1,) * (arr.ndim - 1))
+                props[key] = np.where(keep, arr, 0)
+    return attrs, group_attrs
+
+
+def drop_disabled_keys(
+    results: Dict[str, Dict[str, np.ndarray]], parameter_file: Optional[ParameterFile]
+) -> None:
+    """Remove the properties the parameter file disables (``build_specs``
+    computes the BoundSubhalo counts the filters need even so)."""
+    if parameter_file is None:
+        return
+    table = full_property_table()
+    for group, props in results.items():
+        base = GROUP_TO_BASE.get(group.split("/")[0])
+        chosen = parameter_file.property_filters.get(base or "", {})
+        for key in [k for k in props if chosen.get(table[k].name) is False]:
+            del props[key]
+
+
+def entry_plan(
+    meta, dmo: bool, parameter_file: Optional[ParameterFile] = None,
+    specs: Optional[Sequence[HaloTypeSpec]] = None,
+) -> Tuple[List[str], List[HaloTypeSpec]]:
+    """The particle types a run stages (those with datasets; dark matter
+    and neutrinos only when ``dmo``) and its spec list (``specs``, or the
+    parameter file's, or the defaults): what the host fields handed to
+    ``build_catalogue`` must cover."""
+    ptypes = [pt for pt in meta.ptypes if pt in meta.datasets and meta.datasets[pt]]
+    if dmo:
+        ptypes = [pt for pt in ptypes if pt in ("PartType1", "PartType6")]
+    if specs is None:
+        specs = build_specs(parameter_file, dmo, bn98_value=meta.virBN98)
+    return ptypes, list(specs)
+
+
+def select_halos(
+    cat: HaloCatalogue,
+    halo_indices: Optional[np.ndarray] = None,
+    centrals_only: bool = False,
+    max_halos: int = 0,
+) -> HaloCatalogue:
+    """The reference's debugging selections, in its order: the listed
+    catalogue indices, centrals, the first ``max_halos``."""
+    if halo_indices is not None:
+        cat = cat.select(np.isin(cat.index, np.asarray(halo_indices)))
+    if centrals_only:
+        cat = cat.select(cat.is_central)
+    if max_halos and cat.nr_halos > max_halos:
+        keep = np.zeros(cat.nr_halos, bool)
+        keep[:max_halos] = True
+        cat = cat.select(keep)
+    return cat
+
+
+def _git_hash() -> str:
+    try:
+        return (
+            subprocess.run(
+                ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                cwd=__file__.rsplit("/", 3)[0],
+            ).stdout.strip()
+            or "unknown"
+        )
+    except Exception:
+        return "unknown"
+
+
+def _progress(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+@dataclass
+class EntryResult:
+    """What a run of the entry returns: the catalogue, the filtered engine
+    results in catalogue (unsorted) order, the halos, the spatial sort
+    order, the engine's counters and context, and the seconds spent
+    on the host before the chunk is staged (selections, context), staging
+    it, in the engine, and after it on the host (filters, sort, derived
+    columns, catalogue)."""
+
+    catalogue: Catalogue
+    results: Dict[str, Dict[str, np.ndarray]]
+    halos: HaloCatalogue
+    order: np.ndarray
+    stats: EngineStats
+    ctx: HaloContext
+    prep_seconds: float
+    stage_seconds: float
+    engine_seconds: float
+    post_seconds: float
+    output_path: Optional[str] = None
+
+
+def build_catalogue(
+    meta,
+    cat: HaloCatalogue,
+    host: Mapping[str, Tuple[np.ndarray, Dict[str, np.ndarray]]],
+    specs: Sequence[HaloTypeSpec],
+    parameter_file: Optional[ParameterFile] = None,
+    dmo: bool = True,
+    device="cuda",
+    centrals_only: bool = False,
+    max_halos: int = 0,
+    halo_indices: Optional[np.ndarray] = None,
+    min_read_radius_mpc: float = 5.0e-3,
+    prev_catalogue: Optional[HaloCatalogue] = None,
+    next_catalogue: Optional[HaloCatalogue] = None,
+    fof_groups: Optional[Dict[str, np.ndarray]] = None,
+    snapshot_file: str = "",
+    membership_file: str = "",
+    halo_basename: str = "",
+    halo_format: str = "HBTplus",
+) -> EntryResult:
+    """The in-memory half of the entry, on ``device``.
+
+    ``meta`` is a snapshot-metadata object (``mock_metadata`` or
+    ``io/swift_snapshot.py::SnapshotMetadata``), ``cat`` the halo
+    catalogue, ``host`` the chunk's particle fields per type as
+    ``pipeline/chunks.py::read_chunk_fields`` or ``mock_fields`` give
+    them for ``entry_plan``'s types and this spec list.  The selections,
+    the adjacent catalogues (``SOAP/ProgenitorIndex``,
+    ``SOAP/DescendantIndex``), the SWIFT FOF groups (``FOF/*``) and the
+    input names recorded under ``Parameters`` are as in the JAX
+    ``compute_halo_properties``."""
+    _check_halo_format(halo_format)
+    t_start = time.perf_counter()
+    device = torch.device(device)
+    cat = select_halos(cat, halo_indices, centrals_only, max_halos)
+
+    # the search radius floor: the parameter file's min_read_radius_cmpc
+    # (comoving Mpc) overrides the keyword, and the largest fixed physical
+    # radius of any spec floors it
+    cmpc = (
+        parameter_file.get_parameters().get("calculations", {}).get("min_read_radius_cmpc")
+        if parameter_file is not None else None
+    )
+    if cmpc is not None:
+        min_read_radius_mpc = float(cmpc) * meta.a
+    search_radius_phys = np.maximum(
+        np.maximum(cat.search_radius * meta.a, min_read_radius_mpc), min_physical_radius(specs)
+    )
+    ptypes, specs = entry_plan(meta, dmo, parameter_file, specs)
+    if sorted(host) != sorted(ptypes):
+        raise ValueError(f"host fields for {sorted(host)}, the run stages {ptypes}")
+    ctx = make_context(meta, ptypes, dmo, parameter_file)
+
+    stats = EngineStats()
+    results: Dict[str, Dict[str, np.ndarray]] = {}
+    stage_seconds = engine_seconds = 0.0
+    t0 = time.perf_counter()
+    if cat.nr_halos:
+        chunk = stage_chunk({pt: host[pt] for pt in ptypes}, meta.boxsize, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        engine = HaloEngine(ctx, chunk, specs, device)
+        results = engine.process(
+            centres=cat.cofp,
+            search_radius_phys=search_radius_phys,
+            index=cat.index,
+            is_central=cat.is_central.astype(bool),
+            fof_id=cat.fof_id,
+            # upper bound on EncloseRadius (HBT search radius = 1.01 x REnclose)
+            enclose_radius_phys=cat.search_radius * meta.a,
+        )
+        stats = engine.stats
+        del engine, chunk
+        stage_seconds, engine_seconds = t1 - t0, time.perf_counter() - t1
+    t_post = time.perf_counter()
+
+    # --- category filters: zero masked halos, record metadata ---
+    cat_filter = CategoryFilter(
+        parameter_file.get_filters(DEFAULT_FILTERS) if parameter_file else None, dmo=dmo
+    )
+    filter_attrs, group_attrs = apply_category_filters(
+        results, cat_filter, parameter_file, cat.nr_halos, specs
+    )
+    drop_disabled_keys(results, parameter_file)
+
+    cells_per_dim = int(meta.dimension[0])
+    order = spatial_sort_order(cat.cofp, cat.index, meta.boxsize, cells_per_dim)
+
+    # --- derived SOAP/* columns, computed in final (sorted) order and
+    # mapped back to unsorted storage for the catalogue's [order] ---
+    inv_order = np.empty_like(order)
+    inv_order[order] = np.arange(len(order))
+    soap_cols: Dict[str, np.ndarray] = {}
+    host_fof = cat.passthrough["HBTplus/HostHaloId"]
+    host_fof_sorted = host_fof[order]
+    soap_cols["SOAP/HostHaloIndex"] = derived.host_halo_index(
+        host_fof_sorted, cat.is_central.astype(bool)[order])[inv_order]
+    track_sorted = cat.passthrough["HBTplus/TrackId"][order]
+    if "BoundSubhalo" in results and "Mtot" in results["BoundSubhalo"]:
+        soap_cols["SOAP/SubhaloRankByBoundMass"] = derived.subhalo_rank_by_bound_mass(
+            host_fof_sorted, track_sorted, results["BoundSubhalo"]["Mtot"][order]
+        )[inv_order]
+    # FOF group join for centrals (``combine_chunks.py:406-535``)
+    if fof_groups is not None:
+        soap_cols.update(fof_join(fof_groups, host_fof, cat.is_central.astype(bool)))
+    # mass-binned reduced-snapshot sampling (``combine_chunks.py:606-674``)
+    rs_params = (
+        parameter_file.get_parameters().get("calculations", {}).get("reduced_snapshots")
+        if parameter_file else None
+    )
+    if rs_params and "SO/200_crit" in results:
+        msun_per_unit = meta.snap_units_cgs["Unit mass in cgs (U_M)"] / 1.98841e33
+        soap_cols["SOAP/IncludedInReducedSnapshot"] = derived.included_in_reduced_snapshot(
+            results["SO/200_crit"]["Mtot"][order] * msun_per_unit,
+            halos_per_bin=int(rs_params["halos_per_bin"]),
+            bin_size_dex=float(rs_params["halo_bin_size_dex"]),
+            min_halo_mass_msun=float(rs_params["min_halo_mass"]),
+        )[inv_order]
+    # progenitor/descendant rows: TrackId matched against the adjacent
+    # snapshots' spatially sorted catalogues (``combine_chunks.py:676-735``)
+    for name, other in (("SOAP/ProgenitorIndex", prev_catalogue),
+                        ("SOAP/DescendantIndex", next_catalogue)):
+        other_sorted = None
+        if other is not None:
+            o_order = spatial_sort_order(other.cofp, other.index, meta.boxsize, cells_per_dim)
+            other_sorted = other.passthrough["HBTplus/TrackId"][o_order]
+        soap_cols[name] = derived.progenitor_descendant_index(track_sorted, other_sorted)[inv_order]
+
+    input_halos = {
+        "cofp": cat.cofp,
+        "index": cat.index,
+        "is_central": cat.is_central.astype(np.int64),
+        "nr_bound_part": cat.nr_bound_part,
+        **cat.passthrough,
+        **soap_cols,
+    }
+    catalogue = make_catalogue(
+        meta,
+        meta.units,
+        results,
+        input_halos,
+        order,
+        git_hash=_git_hash(),
+        dataset_extra_attrs=filter_attrs,
+        group_attrs=group_attrs,
+        run_parameters={
+            "swift_filename": snapshot_file,
+            "membership_filename": membership_file or "",
+            "halo_basename": halo_basename,
+            "halo_format": halo_format,
+            "centrals_only": int(centrals_only),
+            "calculations": sorted(s.group for s in specs),
+            "halo_indices": (
+                np.asarray(halo_indices, dtype=np.int64)
+                if halo_indices is not None else np.zeros(0, dtype=np.int64)
+            ),
+        },
+    )
+    return EntryResult(
+        catalogue=catalogue, results=results, halos=cat, order=order, stats=stats, ctx=ctx,
+        prep_seconds=t0 - t_start, stage_seconds=stage_seconds, engine_seconds=engine_seconds,
+        post_seconds=time.perf_counter() - t_post,
+    )
+
+
+def compute_halo_properties(
+    snapshot_file: str,
+    membership_file: str,
+    halo_basename: str,
+    output_file: Optional[str],
+    halo_format: str = "HBTplus",
+    parameter_file: Optional[ParameterFile] = None,
+    dmo: bool = True,
+    centrals_only: bool = False,
+    max_halos: int = 0,
+    halo_indices: Optional[np.ndarray] = None,
+    min_read_radius_mpc: float = 5.0e-3,
+    specs: Optional[List[HaloTypeSpec]] = None,
+    nr_chunks: int = 1,
+    scratch_dir: Optional[str] = None,
+    prev_halo_basename: Optional[str] = None,
+    next_halo_basename: Optional[str] = None,
+    fof_filename: Optional[str] = None,
+    host_index: Optional[int] = None,
+    host_count: Optional[int] = None,
+    reference_snapshot: Optional[str] = None,
+    record_halo_timings: bool = False,
+    record_property_timings: bool = False,
+    verbose: bool = True,
+    device="cuda",
+) -> EntryResult:
+    """The file half of the entry: one snapshot, one chunk, one device.
+
+    Reads the snapshot's metadata (with the membership file as extra
+    input), the HBTplus catalogue, the chunk's particles and, when
+    named, the adjacent catalogues and the SWIFT FOF groups; runs
+    ``build_catalogue`` on ``device``; writes ``output_file`` and, with
+    a parameter file, ``SOAP.used_parameters.yml`` beside it.  Multi-chunk
+    and multi-host runs, per-halo and per-property timings and the other
+    finders raise ``NotImplementedError``."""
+    from soap_tpu_torch.io.catalogue_writer import write_catalogue
+    from soap_tpu_torch.io.fof_catalogue import read_fof_groups
+    from soap_tpu_torch.io.halo_catalogue import read_hbtplus_catalogue
+    from soap_tpu_torch.io.swift_snapshot import SnapshotMetadata
+
+    later = "ROADMAP queue 1's multi-chunk, multi-GPU and multi-host item"
+    if nr_chunks != 1:
+        raise NotImplementedError(f"nr_chunks={nr_chunks}: the port runs one chunk; {later}")
+    if scratch_dir is not None:
+        raise NotImplementedError(f"scratch_dir: no scratch files on one chunk; {later}")
+    if host_count is not None and host_count > 1:
+        raise NotImplementedError(f"host_count={host_count}: one host only; {later}")
+    if record_halo_timings or record_property_timings:
+        raise NotImplementedError(
+            "per-halo and per-property timings come with the chunk loop that records "
+            f"them: {later}")
+    _check_halo_format(halo_format)
+
+    t0 = time.time()
+    meta = SnapshotMetadata(
+        snapshot_file, [membership_file] if membership_file else [],
+        ref_filename=reference_snapshot,
+    )
+    cat = read_hbtplus_catalogue(halo_basename, h=meta.h, a=meta.a)
+    ptypes, specs = entry_plan(meta, dmo, parameter_file, specs)
+    ages = age_table(meta)
+    selected = select_halos(cat, halo_indices, centrals_only, max_halos)
+    host = read_chunk_fields(meta, selected, specs, ptypes, ages)
+    if verbose:
+        n_read = sum(len(pos) for pos, _ in host.values())
+        _progress(f"[{time.time()-t0:6.1f}s] read {n_read} particles for "
+                  f"{selected.nr_halos} halos")
+
+    adjacent = {}
+    for name, basename in (("prev", prev_halo_basename), ("next", next_halo_basename)):
+        adjacent[name] = None
+        if basename:
+            try:
+                adjacent[name] = read_hbtplus_catalogue(basename, h=meta.h, a=meta.a)
+            except FileNotFoundError:
+                if verbose:
+                    _progress(f"no adjacent catalogue for the {name} snapshot: {basename}")
+    run = build_catalogue(
+        meta, selected, host, specs, parameter_file, dmo, device=device,
+        centrals_only=centrals_only, max_halos=max_halos, halo_indices=halo_indices,
+        min_read_radius_mpc=min_read_radius_mpc,
+        prev_catalogue=adjacent["prev"], next_catalogue=adjacent["next"],
+        fof_groups=read_fof_groups(fof_filename) if fof_filename else None,
+        snapshot_file=snapshot_file, membership_file=membership_file,
+        halo_basename=halo_basename, halo_format=halo_format,
+    )
+    if verbose:
+        _progress(f"[{time.time()-t0:6.1f}s] processed {run.halos.nr_halos} halos in "
+                  f"{run.stats.n_bucket_calls} bucket calls ({run.stats.n_retries} retries)")
+    if output_file and parameter_file is not None:
+        # mirror of SWIFT's .used_parameters output
+        parameter_file.write_parameters(os.path.join(
+            os.path.dirname(os.path.abspath(output_file)), "SOAP.used_parameters.yml"))
+    if output_file:
+        write_catalogue(output_file, run.catalogue)
+        run.output_path = output_file
+        if verbose:
+            _progress(f"[{time.time()-t0:6.1f}s] wrote {output_file}")
+    return run

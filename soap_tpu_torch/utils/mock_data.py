@@ -19,6 +19,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
+#: top-level cells per dimension of the mock snapshot's layout
+MOCK_CELLS_PER_DIM = 4
+
 # Internal/snapshot unit system: Mpc, 1e10 Msun, km/s (so U_t = Mpc s/km).
 MPC_CM = 3.08567758149e24
 MSUN_G = 1.98841e33
@@ -462,15 +465,18 @@ NAMED_COLUMNS = {
     ],
 }
 
-#: the run parameters the mock snapshot records: softenings (Mpc) and the
-#: AGN heating temperature (K) behind the recently-heated gas filter
-MOCK_PARAMETERS = {
-    "Gravity:comoving_DM_softening": 0.02,
-    "Gravity:max_physical_DM_softening": 0.01,
-    "Gravity:comoving_baryon_softening": 0.01,
-    "Gravity:max_physical_baryon_softening": 0.005,
-    "EAGLEAGN:AGN_delta_T_K": 3.16228e7,
+#: the run parameters the mock snapshot records, as the text it stores:
+#: softenings (Mpc) and the AGN heating temperature (K) behind the
+#: recently-heated gas filter
+MOCK_PARAMETER_TEXT = {
+    "Gravity:comoving_DM_softening": "0.02",
+    "Gravity:max_physical_DM_softening": "0.01",
+    "Gravity:comoving_baryon_softening": "0.01",
+    "Gravity:max_physical_baryon_softening": "0.005",
+    "EAGLEAGN:AGN_delta_T_K": "3.16228e7",
 }
+#: the same as numbers
+MOCK_PARAMETERS = {k: float(v) for k, v in MOCK_PARAMETER_TEXT.items()}
 
 
 def snapshot_attrs(uni: MockUniverse) -> Dict[str, Dict[str, float]]:
@@ -511,3 +517,33 @@ def snapshot_attrs(uni: MockUniverse) -> Dict[str, Dict[str, float]]:
         },
         "PhysicalConstants/InternalUnits": {"newton_G": G_INTERNAL},
     }
+
+
+def snapshot_header(uni: MockUniverse) -> Dict[str, object]:
+    """The mock snapshot's ``Header`` attributes as h5py reads them back
+    (by name, values as stored)."""
+    numpart = np.zeros(7, dtype=np.int64)
+    numpart[1] = len(uni.pos)
+    for ptype, fields in (uni.extra_ptypes or {}).items():
+        numpart[int(ptype[-1])] = len(fields["Coordinates"])
+    return {
+        "BoxSize": np.array([uni.boxsize] * 3),
+        "NumFilesPerSnapshot": np.array([1], dtype=np.int32),
+        "NumPart_ThisFile": numpart,
+        "NumPart_Total": numpart.copy(),
+        "Redshift": np.array([1.0 / uni.a - 1.0]),
+        "RunName": np.bytes_("soap_tpu_mock"),
+        "Scale-factor": np.array([uni.a]),
+    }
+
+
+def cell_centres(boxsize: float, cells_per_dim: int) -> np.ndarray:
+    """(cells_per_dim**3, 3) centres of the snapshot's top-level cells,
+    row-major."""
+    cell_size = boxsize / cells_per_dim
+    centres = np.zeros((cells_per_dim**3, 3))
+    k = np.arange(cells_per_dim**3)
+    centres[:, 0] = (k // (cells_per_dim**2) + 0.5) * cell_size
+    centres[:, 1] = ((k // cells_per_dim) % cells_per_dim + 0.5) * cell_size
+    centres[:, 2] = (k % cells_per_dim + 0.5) * cell_size
+    return centres

@@ -2,7 +2,9 @@
 
 Used where the port's engine is compared with the JAX engine on the CPU
 (``tests/test_torch_engine_*.py``) and where its GPU run is compared with
-its CPU run (``chip_smoke.py``).  The classes follow what the two sides'
+its CPU run (``chip_smoke.py``); ``catalogue_differences`` holds whole
+catalogues to each other the same way (``tests/test_torch_entry_*.py``,
+``chip_smoke.py`` phase 5e).  The classes follow what the two sides'
 summation orders explain, as measured on the test mocks (``CHANGES.md``):
 
 - particle counts are equal;
@@ -57,3 +59,62 @@ def scaled_error(ref, got) -> float:
     if not a.size:
         return 0.0
     return float(np.abs(b - a).max() / max(np.abs(a).max(), 1e-30))
+
+
+#: catalogue groups whose datasets are inputs or host-side integer work,
+#: held exactly
+EXACT_GROUPS = ("Cells", "InputHalos", "HBTplus", "SOAP", "FOF")
+
+
+def _same_value(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind == "O":  # variable-length strings, as h5py reads them
+        return a.tolist() == b.tolist()
+    return a.tobytes() == b.tobytes()
+
+
+def catalogue_differences(ref, got) -> list:
+    """Where catalogue ``got`` departs from ``ref`` (two
+    ``io/catalogue.py::Catalogue`` objects; their time stamps and git
+    hashes are not compared): the same groups with the same attributes,
+    the same datasets in the same order with the same dtypes, shapes and
+    attributes, equal data for the passthrough, cell and ``SOAP/*``
+    groups and every integer dataset, and each float property within its
+    key's class (``key_close``).  Returns the differences as text (empty
+    when none)."""
+    from soap_tpu_torch.core.registry import full_property_table
+
+    table = full_property_table()
+    out = []
+    if ref.n_halos != got.n_halos:
+        out.append(f"{got.n_halos} halos, not {ref.n_halos}")
+    if list(ref.groups) != list(got.groups):
+        out.append(f"groups {sorted(set(ref.groups) ^ set(got.groups))} differ")
+    for path, attrs in ref.groups.items():
+        other = got.groups.get(path, {})
+        for k in sorted(set(attrs) | set(other)):
+            if k not in attrs or k not in other or not _same_value(attrs[k], other[k]):
+                out.append(f"attribute {path}:{k} differs")
+    if list(ref.datasets) != list(got.datasets):
+        out.append(f"datasets {sorted(set(ref.datasets) ^ set(got.datasets))} differ")
+    for path, ds in ref.datasets.items():
+        if path not in got.datasets:
+            continue
+        g = got.datasets[path]
+        a, b = np.asarray(ds.data), np.asarray(g.data)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out.append(f"{path}: {b.dtype} {b.shape}, not {a.dtype} {a.shape}")
+            continue
+        for k in sorted(set(ds.attrs) | set(g.attrs)):
+            if k not in ds.attrs or k not in g.attrs or not _same_value(ds.attrs[k], g.attrs[k]):
+                out.append(f"attribute {path}:{k} differs")
+        if path.split("/")[0] in EXACT_GROUPS or a.dtype.kind not in "fc":
+            if not _same_value(a, b):
+                out.append(f"{path}: not equal")
+        else:
+            key = table.by_output_name(path.rsplit("/", 1)[1]).key
+            if not key_close(a, b, key):
+                out.append(f"{path} ({key}): scaled error {scaled_error(a, b):.3e}")
+    return out
