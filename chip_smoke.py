@@ -78,7 +78,23 @@ Phases, each printing its lines and raising on failure:
  12. the FLAMINGO entry: phase 8's universe with FLAMINGO's list and
     context (5 cMpc read radius floor, category filters at 100
     particles, disabled keys dropped, the reduced-snapshot flag, K2 for
-    the bound subhalo), the same passes with HYDRO_TIMED_PASSES.
+    the bound subhalo), the same passes with HYDRO_TIMED_PASSES;
+ 13. the chunked DMO entry: phase 11's inputs at ENTRY_CHUNKS Peano–Hilbert
+    chunks with the in-memory reader and read-ahead staging (chunk N+1
+    read and staged on a side stream while chunk N computes), the same
+    passes, printing per chunk the read-and-stage seconds in the reader
+    thread, the main thread's wait and the engine's seconds, the
+    particles staged against one chunk's, device memory after each
+    chunk and the peak; the catalogue must equal phase 11's, memory
+    after each chunk stay within the baseline plus the next prestaged
+    store, and a prestaged store equal the same chunk staged serially;
+    then one pass without read-ahead;
+ 13t. the chunk loop with per-halo and per-property timings: phase 5's
+    mock at TIMING_CHUNKS chunks, GPU against CPU (equal catalogues and
+    n_loop, process_time > 0, every _time dataset >= 0 with a positive
+    sum and equal within a spec);
+ 14. the chunked FLAMINGO entry: phase 12's inputs as phase 13 runs
+    phase 11's, FLAMINGO_CHUNKED_PASSES timed passes, against phase 12.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -105,6 +121,8 @@ from soap_tpu_torch.ops import kernel_lib
 from soap_tpu_torch.ops import range_gather as rg
 from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
+from soap_tpu_torch.parallel.domain import peano_decomposition
+from soap_tpu_torch.pipeline import chunks
 from soap_tpu_torch.pipeline.chunks import mock_fields, stage_chunk
 from soap_tpu_torch.pipeline.engine import HaloEngine
 from soap_tpu_torch.pipeline.run import (
@@ -121,6 +139,7 @@ K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
 HYDRO_TIMED_PASSES = 3  # the hydro and COLIBRE paths', to fit the run's time limit
 GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
+FLAMINGO_CHUNKED_PASSES = 2  # the chunked FLAMINGO entry's, to fit the time limit
 ENGINE_SEED = 11
 BENCH = dict(
     n_halos=2048, n_field=400000, boxsize=170.0, seed=20260816,
@@ -831,10 +850,10 @@ def entry_inputs(uni, dmo, parameter_file=None):
                 dmo=dmo)
 
 
-def run_entry(inputs, device):
+def run_entry(inputs, device, **kw):
     i = inputs
     return build_catalogue(i["meta"], i["cat"], i["host"], i["specs"], i["params"], i["dmo"],
-                           device=device)
+                           device=device, **kw)
 
 
 def phase_entry(dev):
@@ -861,30 +880,34 @@ def phase_entry(dev):
             f"counters {_counters(got.stats)}; launches K1 {n1}, K2 {n2}")
 
 
-def drive_entry(tag, inputs, dev, timed):
-    """One path through the entry's in-memory half: a warm pass, then
-    ``timed`` timed passes (each with the launch counters set to 0 just
-    before it and read just after), then a checked pass (PathCheck).
-    Reports halos/s over the whole entry and its seconds before, in and
-    after the engine."""
+def drive_entry(tag, inputs, dev, timed, **kw):
+    """One path through the entry's in-memory half (``kw``: the chunk
+    loop's options): a warm pass, then ``timed`` timed passes (each with
+    the launch counters set to 0 just before it and read just after),
+    then a checked pass (PathCheck).  Reports halos/s over the whole
+    entry and its seconds before, in and after the engine; returns each
+    timed pass's device memory before it and its chunk records."""
     specs, H = inputs["specs"], inputs["cat"].nr_halos
     say(tag, f"spec list: {len(specs)} calculations, {sum(len(s.keys) for s in specs)} keys; "
-        f"{H} halos; {sum(len(p) for p, _ in inputs['host'].values())} particles")
+        f"{H} halos; {sum(len(p) for p, _ in inputs['host'].values())} particles; "
+        f"options {kw}")
     t0 = time.perf_counter()
-    run_entry(inputs, dev)
+    run_entry(inputs, dev, **kw)
     torch.cuda.synchronize()
     say(tag, f"warm pass {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    rates, parts = [], []
+    rates, parts, passes = [], [], []
     for _ in range(timed):
         torch.cuda.synchronize()
+        baseline = torch.cuda.memory_allocated()
         rg.launches = il.launches = 0
         il.cluster_launches.clear()
         hs.k2_launches_by_config.clear()
         t0 = time.perf_counter()
-        out = run_entry(inputs, dev)
+        out = run_entry(inputs, dev, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        passes.append((baseline, out.chunks))
         launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
         if launches["range_gather"] == 0 or (launches["inertia_loop"] > 0) != uses_k2(specs):
             raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
@@ -900,7 +923,7 @@ def drive_entry(tag, inputs, dev, timed):
                 data.astype(np.float64)).all()):
             raise AssertionError(f"{tag} {path}: shape {data.shape} or non-finite")
     with PathCheck() as check:
-        run_entry(inputs, dev)
+        run_entry(inputs, dev, **kw)
         torch.cuda.synchronize()
     if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
         raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
@@ -918,8 +941,8 @@ def drive_entry(tag, inputs, dev, timed):
     say(tag, f"checked pass, every call against its plain version: K1 bit-equal at "
         f"{check.k1['shapes']}; K2 within rtol {K2_RTOL} at {check.k2['shapes']} (max abs "
         f"err {check.k2['max_abs_err']:.3e})")
-    return dict(out=out, launches=launches,
-                check={"range_gather": check.k1, "inertia_loop": check.k2})
+    return dict(out=out, launches=launches, inputs=inputs, passes=passes, peak=peak,
+                rates=rates, check={"range_gather": check.k1, "inertia_loop": check.k2})
 
 
 def _sorted_cells(cat, meta):
@@ -978,6 +1001,145 @@ def phase_entry_flamingo(dev, uni):
     return run
 
 
+#: the chunked entries' Peano–Hilbert chunks
+ENTRY_CHUNKS = 4
+#: the timing check's chunks (phase 13t)
+TIMING_CHUNKS = 3
+
+
+def check_prestage(tag, inputs, dev):
+    """One chunk (the second) staged by ``chunks.prestage`` on a side
+    stream in another thread, against the same chunk staged on the main
+    stream: torch.equal for every tensor (floats as their bits)."""
+    meta, cat, specs = inputs["meta"], inputs["cat"], inputs["specs"]
+    chunk_of = peano_decomposition(np.mod(cat.cofp, meta.boxsize), meta.boxsize, ENTRY_CHUNKS)
+    rows = np.flatnonzero(chunk_of == 1)
+    host = chunks.memory_reader(meta, cat, inputs["host"], specs)(rows)
+    serial = chunks.stage_chunk(host, meta.boxsize, dev)
+    with ThreadPoolExecutor(1) as pool:
+        pre, ready = pool.submit(chunks.prestage, host, meta.boxsize, dev).result()
+    chunks.adopt(pre, ready, dev)
+    for pt, a in serial.ptypes.items():
+        b = pre.ptypes[pt]
+        if (a.spec, a.n, a.row_width, a.cols_f, a.cols_i) != (
+                b.spec, b.n, b.row_width, b.cols_f, b.cols_i):
+            raise AssertionError(f"{tag}: prestaged {pt} layout differs from serial staging")
+    for x, y in zip(chunks.chunk_tensors(serial), chunks.chunk_tensors(pre)):
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: a prestaged tensor differs from serial staging")
+    n = sum(len(p) for p, _ in host.values())
+    say(tag, f"chunk 1 ({len(rows)} halos, {n} particles, "
+        f"{chunks.store_bytes(pre) / 2**30:.3f} GiB): prestaged store on a side stream in "
+        f"another thread torch.equal to the main stream's serial staging, every tensor")
+
+
+def phase_entry_chunked(tag, dev, one, timed, serial_pass=True):
+    """Phases 13 and 14: a one-chunk entry path's inputs through
+    ``build_catalogue`` at ENTRY_CHUNKS chunks with read-ahead staging
+    (``drive_entry``'s passes), held to the one-chunk run ``one``:
+    the same catalogue (datasets, dtypes, shapes, attributes; exact sort,
+    integers, SOAP/* and passthrough; floats within tolerance), device
+    memory after each chunk at most the baseline plus the next prestaged
+    store, a prestaged store equal to a serial one; with
+    ``serial_pass``, one more pass without read-ahead."""
+    inputs = one["inputs"]
+    H = inputs["cat"].nr_halos
+    run = drive_entry(tag, inputs, dev, timed, nr_chunks=ENTRY_CHUNKS, prefetch=True)
+    out = run["out"]
+    diffs = catalogue_differences(one["out"].catalogue, out.catalogue)
+    if diffs:
+        raise AssertionError(f"{tag}: catalogue differs from the one-chunk run: {diffs[:10]}")
+    if not np.array_equal(one["out"].order, out.order):
+        raise AssertionError(f"{tag}: sort order differs from the one-chunk run")
+    for baseline, records in run["passes"]:
+        for i, rec in enumerate(records):
+            nxt = records[i + 1].store_bytes if i + 1 < len(records) else 0
+            if rec.memory_after > baseline + nxt:
+                raise AssertionError(
+                    f"{tag}: chunk {rec.chunk_nr} left {rec.memory_after - baseline} bytes "
+                    f"allocated, the next prestaged store is {nxt}")
+    records = run["passes"][-1][1]
+    n_one = sum(len(p) for p, _ in inputs["host"].values())
+    n_staged = sum(r.particles for r in records)
+    med = {k: [float(np.median([getattr(recs[i], k) for _, recs in run["passes"]]))
+               for i in range(len(records))]
+           for k in ("read_seconds", "wait_seconds", "engine_seconds")}
+    hidden = 1.0 - sum(med["wait_seconds"][1:]) / max(sum(med["read_seconds"][1:]), 1e-9)
+    say(tag, f"{len(records)} chunks of {[r.halos for r in records]} halos; particles staged "
+        f"{n_staged} over all chunks against {n_one} for one chunk ({n_staged / n_one:.3f}x; "
+        f"{[r.particles for r in records]}); median seconds per chunk: read and stage in the "
+        f"reader thread {[round(x, 4) for x in med['read_seconds']]}, main thread waiting "
+        f"in take() {[round(x, 4) for x in med['wait_seconds']]}, engine "
+        f"{[round(x, 4) for x in med['engine_seconds']]}; share of read-and-stage hidden "
+        f"behind compute (chunks 1 on) {hidden:.4f}; stores "
+        f"{[round(r.store_bytes / 2**30, 3) for r in records]} GiB; memory_allocated after "
+        f"each chunk's merge {[round(r.memory_after / 2**30, 3) for r in records]} GiB "
+        f"(baseline {run['passes'][-1][0] / 2**30:.3f}); peak {run['peak']:.2f} GiB "
+        f"against the one-chunk run's {one['peak']:.2f}; halos/s median "
+        f"{np.median(run['rates']):.2f} against {np.median(one['rates']):.2f}")
+    say(tag, f"catalogue == the one-chunk run's ({len(out.catalogue.datasets)} datasets: "
+        f"names, dtypes, shapes, attributes; exact sort, integers, SOAP/* and passthrough; "
+        f"floats within tolerance); memory after each chunk within the baseline plus the "
+        f"next prestaged store")
+    check_prestage(tag, inputs, dev)
+    if serial_pass:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ser = run_entry(inputs, dev, nr_chunks=ENTRY_CHUNKS, prefetch=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        say(tag, f"one pass without read-ahead: {H / dt:.2f} halos/s; per chunk read and "
+            f"stage {[round(r.read_seconds, 4) for r in ser.chunks]}, engine "
+            f"{[round(r.engine_seconds, 4) for r in ser.chunks]} s")
+    return run
+
+
+def phase_timings_chunked(dev):
+    """Phase 13t: phase 5's 64-halo mock through ``build_catalogue`` at
+    TIMING_CHUNKS chunks with per-halo and per-property timings, on the
+    GPU against the CPU: the same catalogue (timings by name, dtype,
+    shape and attributes), equal n_loop, process_time > 0 for every
+    processed halo, every ``_time`` dataset >= 0 with a positive sum and
+    equal across the keys of one spec."""
+    uni = build_mock_universe(**ENGINE_MOCK)
+    kw = dict(nr_chunks=TIMING_CHUNKS, record_halo_timings=True, record_property_timings=True)
+    t0 = time.perf_counter()
+    ref = run_entry(entry_inputs(uni, True), "cpu", **kw)
+    t1 = time.perf_counter()
+    rg.launches = il.launches = 0
+    got = run_entry(entry_inputs(uni, True), dev, **kw)
+    n1, n2 = rg.launches, il.launches
+    t2 = time.perf_counter()
+    diffs = catalogue_differences(ref.catalogue, got.catalogue)
+    if diffs:
+        raise AssertionError(f"timings: GPU catalogue differs from CPU: {diffs[:10]}")
+    d = got.catalogue.datasets
+    if not np.array_equal(d["InputHalos/n_loop"].data, ref.catalogue.datasets[
+            "InputHalos/n_loop"].data):
+        raise AssertionError("timings: n_loop differs between GPU and CPU")
+    done = d["InputHalos/n_process"].data == 1
+    if not done.all() or not (d["InputHalos/process_time"].data[done] > 0).all():
+        raise AssertionError("timings: a processed halo has no process_time")
+    by_group = {}
+    for path, ds in d.items():
+        if path.endswith("_time") and path != "InputHalos/process_time":
+            by_group.setdefault(path.rsplit("/", 1)[0], []).append(ds.data)
+    for group, arrays in by_group.items():
+        if (arrays[0] < 0).any() or arrays[0].sum() <= 0 or any(
+                not np.array_equal(a, arrays[0]) for a in arrays[1:]):
+            raise AssertionError(f"timings: {group}'s _time datasets negative, zero or unequal")
+    if n1 == 0 or n2 == 0:
+        raise AssertionError(f"timings: GPU run bypassed a kernel: K1 {n1}, K2 {n2}")
+    say("timings", f"{got.catalogue.n_halos} halos over {len(got.chunks)} chunks with halo "
+        f"and property timings: GPU == CPU ({len(d)} datasets, timings by name only); "
+        f"n_loop equal (max {int(d['InputHalos/n_loop'].data.max())}); process_time > 0 for "
+        f"all; {len(by_group)} groups' _time datasets >= 0, positive sums, equal within "
+        f"each spec; launches K1 {n1}, K2 {n2}; CPU run {t1 - t0:.1f} s, GPU {t2 - t1:.1f} s")
+    return dict(launches={"range_gather": n1, "inertia_loop": n2})
+
+
 def phase_profile(dev, tag, inputs):
     """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
@@ -1034,6 +1196,12 @@ def main():
     every_key_run = phase_colibre_every_key(dev, hydro_uni)
     main_entry_run = phase_entry_main(dev, main_uni)
     flamingo_entry_run = phase_entry_flamingo(dev, hydro_uni)
+    main_chunked_run = phase_entry_chunked("main-entry-chunked", dev, main_entry_run,
+                                           TIMED_PASSES)
+    timings_run = phase_timings_chunked(dev)
+    flamingo_chunked_run = phase_entry_chunked("flamingo-entry-chunked", dev,
+                                               flamingo_entry_run, FLAMINGO_CHUNKED_PASSES,
+                                               serial_pass=False)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
@@ -1041,8 +1209,11 @@ def main():
 
     # launches: the main path's count; giant_path_launches,
     # hydro_path_launches, colibre_path_launches,
-    # colibre_every_key_path_launches, main_entry_path_launches and
-    # flamingo_entry_path_launches: those paths';
+    # colibre_every_key_path_launches, main_entry_path_launches,
+    # flamingo_entry_path_launches, main_entry_chunked_path_launches,
+    # flamingo_entry_chunked_path_launches (one timed pass over all
+    # chunks) and timings_chunked_path_launches (phase 13t's GPU run):
+    # those paths';
     # path_checks: each path's checked
     # pass (calls, max abs err against the plain version, the shapes it
     # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
@@ -1050,7 +1221,9 @@ def main():
     # kernel.
     runs = {"main": main_run, "giant": giant_run, "hydro": hydro_run,
             "colibre": colibre_run, "colibre-every-key": every_key_run,
-            "main-entry": main_entry_run, "flamingo-entry": flamingo_entry_run}
+            "main-entry": main_entry_run, "flamingo-entry": flamingo_entry_run,
+            "main-entry-chunked": main_chunked_run,
+            "flamingo-entry-chunked": flamingo_chunked_run}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -1071,6 +1244,9 @@ def main():
                     colibre_every_key_path_launches=every_key_run["launches"][name],
                     main_entry_path_launches=main_entry_run["launches"][name],
                     flamingo_entry_path_launches=flamingo_entry_run["launches"][name],
+                    main_entry_chunked_path_launches=main_chunked_run["launches"][name],
+                    flamingo_entry_chunked_path_launches=flamingo_chunked_run["launches"][name],
+                    timings_chunked_path_launches=timings_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

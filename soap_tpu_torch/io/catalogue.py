@@ -31,6 +31,12 @@ from soap_tpu_torch.core.registry import PropertyDef, PropertyTable, full_proper
 from soap_tpu_torch.core.units import UnitRegistry, attributes_from_unit
 
 
+#: the ``Description`` of a per-property ``_time`` dataset, as the JAX
+#: writer stores it
+TIME_DESCRIPTION = (
+    "Compute seconds attributed to this halo for this property's calculation group")
+
+
 @dataclass
 class CatalogueDataset:
     data: np.ndarray
@@ -104,10 +110,12 @@ def make_catalogue(
     dataset_extra_attrs: Optional[Mapping[str, Mapping[str, object]]] = None,
     group_attrs: Optional[Mapping[str, Mapping[str, object]]] = None,
     run_parameters: Optional[Mapping[str, object]] = None,
+    property_timings: Optional[Mapping[str, np.ndarray]] = None,  # group -> (H,) s
 ) -> Catalogue:
     """The catalogue ``soap_tpu/io/catalogue_writer.py::write_catalogue``
-    writes for the same arguments (no per-property timings, no
-    ``used_parameters`` text)."""
+    writes for the same arguments (no ``used_parameters`` text): with
+    ``property_timings``, each property of a timed group is followed by
+    its ``<name>_time`` dataset, the group's per-halo seconds."""
     if table is None:
         table = full_property_table()
     a = reg.a
@@ -181,6 +189,7 @@ def make_catalogue(
     # --- computed halo-type groups ---
     extra = dataset_extra_attrs or {}
     for group, props in results.items():
+        timings = (property_timings or {}).get(group)
         for key, raw in props.items():
             prop = table[key]
             full_name = f"{group}/{prop.name}"
@@ -188,6 +197,13 @@ def make_catalogue(
                 convert_for_output(np.asarray(raw)[order], prop, a),
                 property_attributes(prop, reg, extra.get(full_name)),
             )
+            if timings is not None:
+                # (reference ``--record-property-timings``): every property
+                # of a group shares its spec program's per-halo seconds
+                datasets[f"{full_name}_time"] = CatalogueDataset(
+                    np.asarray(timings, np.float32)[order],
+                    {"Description": np.bytes_(TIME_DESCRIPTION)},
+                )
         # per-variation mask metadata on the group itself
         # (reference combine_chunks.py:365-368)
         groups.setdefault(group, {}).update((group_attrs or {}).get(group, {}))

@@ -369,28 +369,39 @@ class SnapshotMetadata:
         radii: np.ndarray,
         select: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Boolean mask over cells intersecting any (centre, radius) AABB.
+        """``mask_cells_for_spheres`` over this snapshot's cells."""
+        return mask_cells_for_spheres(
+            self.cell_centres, self.cell_size, self.boxsize, centres, radii, select
+        )
 
-        Equivalent of the reference's ``mask_cells``
-        (``SOAP/core/mask_cells.py:6-38``): each halo marks the cells whose
-        centres lie within ``radius + half cell diagonal`` of its centre
-        along each axis, with periodic wrapping.
-        """
-        mask = np.zeros(self.nr_cells, dtype=bool)
-        if select is not None:
-            centres = centres[select]
-            radii = radii[select]
-        if len(centres) == 0:
-            return mask
-        half = 0.5 * self.cell_size
-        box = self.boxsize
-        cc = self.cell_centres
-        for c, r in zip(centres, np.broadcast_to(radii, (len(centres),))):
-            d = np.abs(cc - c[None, :])
-            d = np.minimum(d, box - d)
-            inside = np.all(d <= (r + half)[None, :], axis=1)
-            mask |= inside
+
+def mask_cells_for_spheres(
+    cell_centres: np.ndarray,  # (nr_cells, 3) comoving
+    cell_size: np.ndarray,  # (3,) comoving
+    boxsize: float,
+    centres: np.ndarray,  # (H, 3) comoving
+    radii: np.ndarray,  # (H,) or scalar, comoving
+    select: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Boolean mask over cells intersecting any (centre, radius) AABB.
+
+    Equivalent of the reference's ``mask_cells``
+    (``SOAP/core/mask_cells.py:6-38``): each halo marks the cells whose
+    centres lie within ``radius`` plus half a cell of its centre along
+    each axis, with periodic wrapping.
+    """
+    mask = np.zeros(len(cell_centres), dtype=bool)
+    if select is not None:
+        centres = centres[select]
+        radii = radii[select]
+    if len(centres) == 0:
         return mask
+    half = 0.5 * np.asarray(cell_size)
+    for c, r in zip(centres, np.broadcast_to(radii, (len(centres),))):
+        d = np.abs(cell_centres - c[None, :])
+        d = np.minimum(d, boxsize - d)
+        mask |= np.all(d <= (r + half)[None, :], axis=1)
+    return mask
 
 
 def _decode(v) -> str:

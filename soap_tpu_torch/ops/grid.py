@@ -8,7 +8,6 @@ fixed-size cube of cells for a whole batch of halos at once.
 
 from __future__ import annotations
 
-import os as _os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -16,13 +15,16 @@ import numpy as np
 import torch
 
 
+#: particles per cell of a chunk grid (the JAX package's default)
+PARTICLES_PER_CELL = 16.0
+
+
 def choose_resolution(n_particles: int) -> int:
-    """Cells per dimension for a chunk grid: about
-    ``SOAP_TPU_GRID_PER_CELL`` (default 16) particles per cell, clipped
-    to [1, 192] cells per dimension, as in the JAX package."""
-    per_cell = float(_os.environ.get("SOAP_TPU_GRID_PER_CELL", "16"))
+    """Cells per dimension for a chunk grid: about ``PARTICLES_PER_CELL``
+    particles per cell, clipped to [1, 192] cells per dimension, as in
+    the JAX package."""
     return int(
-        np.clip(round((n_particles / per_cell) ** (1.0 / 3.0)), 1, 192)
+        np.clip(round((n_particles / PARTICLES_PER_CELL) ** (1.0 / 3.0)), 1, 192)
     )
 
 

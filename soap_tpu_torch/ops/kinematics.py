@@ -14,6 +14,8 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from soap_tpu_torch.ops.reductions import particle_sum, prefix_sum
+
 
 def angular_momentum(
     mass: torch.Tensor,  # (B, K)
@@ -43,7 +45,7 @@ def vmax_sorted(
 ) -> VmaxResult:
     """Vmax from a pre-sorted profile: the cumulative selected mass over
     radius, maximised over the selected rows with non-zero radius."""
-    cum = torch.cumsum(torch.where(v, m, 0.0), 1)
+    cum = prefix_sum(torch.where(v, m, 0.0))
     usable = v & ~(torch.abs(r) <= 1e-8)
     ratio = torch.where(usable, cum / torch.clamp(r, min=1e-37), -torch.inf)
     imax = torch.argmax(ratio, 1)
@@ -69,7 +71,7 @@ def vmax_sorted_multi_soft(
     a selected particle's own radius where it is at least its softening,
     and each softening value below which some selected particle of that
     type lies."""
-    cums = [torch.cumsum(torch.where(tm, m_sorted, 0.0), 1) for tm in type_masks]
+    cums = [prefix_sum(torch.where(tm, m_sorted, 0.0)) for tm in type_masks]
     finite = torch.isfinite(r_sorted)
     M_r = torch.zeros_like(cums[0])
     own_point = torch.zeros_like(type_masks[0])
@@ -125,7 +127,7 @@ def angular_momentum_and_kappa(
     excluded (reference ``kinematic_properties.py:266-425``)."""
     m = torch.where(mask, mass, 0.0)
     Lpart = m[..., None] * torch.linalg.cross(pos, vel, dim=-1)
-    Ltot = torch.where(mask[..., None], Lpart, 0.0).sum(1)
+    Ltot = particle_sum(torch.where(mask[..., None], Lpart, 0.0))
     Lnrm = torch.sqrt((Ltot * Ltot).sum(1))
     vx, vy, vz = vel[..., 0], vel[..., 1], vel[..., 2]
     K = 0.5 * (m * (vx * vx + vy * vy + vz * vz)).sum(1)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from soap_tpu_torch.ops.reductions import prefix_sum
+
 
 def _first_true(x: torch.Tensor) -> torch.Tensor:
     """Index of the first True along dim 1 (0 when none)."""
@@ -26,7 +28,7 @@ def half_weight_radius_sorted(
 ) -> torch.Tensor:
     """Half-weight radius (B,) from pre-sorted profiles."""
     w = torch.where(v, w, 0.0)
-    cum = torch.cumsum(w, 1)
+    cum = prefix_sum(w)
     target = 0.5 * total_weight
     reached = v & (cum >= target[:, None])
     ihalf = _first_true(reached)[:, None]

@@ -12,6 +12,26 @@ from typing import Tuple
 import torch
 
 
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the particle axis (dim 1), accumulated in
+    float64 on every device and rounded back to ``x``'s dtype.  PyTorch's
+    CPU kernel accumulates float32 this way already (so the CPU result is
+    bit for bit ``torch.cumsum``'s); its CUDA float32 scan associates
+    by row length, which would make a halo's SO radius depend on the
+    capacity of the bucket it shares with other halos."""
+    return torch.cumsum(x, 1, dtype=torch.float64).to(x.dtype)
+
+
+def particle_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the particle axis (dim 1), accumulated in float64 and
+    rounded back to ``x``'s dtype.  PyTorch's CUDA float32 sum
+    associates by the reduced length, so a halo's centre-of-mass
+    velocity and angular momentum, and with them which particles count
+    as co-rotating, would depend on the capacity of the bucket it shares
+    with other halos."""
+    return x.sum(1, dtype=torch.float64).to(x.dtype)
+
+
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Sum of x over the selected particles; x is (B, K) or (B, K, D)."""
     if x.dim() > mask.dim():
@@ -40,8 +60,8 @@ def centre_of_mass_velocity(
 ) -> torch.Tensor:
     """Mass-weighted mean velocity (B, 3) of the selected particles."""
     m = torch.where(mask, mass, 0.0)
-    mtot = m.sum(1)
-    v = (m[..., None] * vel).sum(1) / torch.clamp(mtot, min=1e-37)[:, None]
+    mtot = particle_sum(m)
+    v = particle_sum(m[..., None] * vel) / torch.clamp(mtot, min=1e-37)[:, None]
     return torch.where(mtot[:, None] > 0, v, 0.0)
 
 

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from soap_tpu_torch.ops.reductions import prefix_sum
+
 _FOUR_PI_3 = 4.0 * math.pi / 3.0
 _BISECT_ITERS = 48
 
@@ -85,7 +87,7 @@ def _usable(r, v):
 def _profile(r, m, v, nu_background_density):
     m = torch.where(v, m, 0.0)
     nu = float(nu_background_density) * _FOUR_PI_3
-    return torch.cumsum(m, 1) + torch.where(v, nu * _cube(r), 0.0)
+    return prefix_sum(m) + torch.where(v, nu * _cube(r), 0.0)
 
 
 def so_radius_sorted(

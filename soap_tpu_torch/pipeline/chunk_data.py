@@ -116,12 +116,22 @@ def _summed_area_table(values: torch.Tensor, dims, dtype) -> torch.Tensor:
     return torch.nn.functional.pad(c, (1, 0, 1, 0, 1, 0))
 
 
+def _upload(arr: np.ndarray, device: torch.device, non_blocking: bool) -> torch.Tensor:
+    """A host array on ``device``; ``non_blocking``: through a pinned
+    buffer, copied asynchronously on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if non_blocking and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def stage_ptype(
     pos: np.ndarray,  # (N, 3) float64 comoving, inside [0, box)
     fields: Dict[str, np.ndarray],
     boxsize: float,
     device: torch.device,
     resolution: Optional[int] = None,
+    non_blocking: bool = False,
 ) -> PTypeChunk:
     """Stage one particle type into the packed cell-sorted store.
 
@@ -131,8 +141,10 @@ def stage_ptype(
     box.  Rows past the real count (quantized to quarter powers of two,
     with 1024 guard rows for the block-granular range gather) stay zero
     and are unreachable: cell offsets and counts reference real rows
-    only.
+    only.  ``non_blocking``: host arrays go up through pinned buffers
+    with asynchronous copies (a side stream's staging).
     """
+    device = torch.device(device)
     n = len(pos)
     empty = n == 0
     if empty:
@@ -152,8 +164,8 @@ def stage_ptype(
         periodic=True,
     )
     hi_h, lo_h = geometry.split_hi_lo(pos)
-    hi = torch.from_numpy(hi_h).to(device)
-    lo = torch.from_numpy(lo_h).to(device)
+    hi = _upload(hi_h, device, non_blocking)
+    lo = _upload(lo_h, device, non_blocking)
 
     # flat cell keys from the f32 hi positions, as the query side bins them
     keys = cell_index_of(spec, hi)
@@ -165,7 +177,7 @@ def stage_ptype(
     if mass is None:
         cell_mass = counts.to(torch.float32)
     else:
-        w = torch.from_numpy(np.asarray(mass, np.float64)).to(device)
+        w = _upload(np.asarray(mass, np.float64), device, non_blocking)
         cell_mass = torch.bincount(keys, weights=w, minlength=spec.n_cells).to(
             torch.float32
         )
@@ -197,9 +209,7 @@ def stage_ptype(
     packed[:n_rows, 0:3] = hi[order]
     packed[:n_rows, 3:6] = lo[order]
     for name, start, shape in cols_f:
-        arr = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(fields[name]).reshape(n_rows, -1))
-        ).to(device)
+        arr = _upload(np.asarray(fields[name]).reshape(n_rows, -1), device, non_blocking)
         packed[:n_rows, start : start + _row_width(shape)] = arr[order].to(
             torch.float32
         )
@@ -207,7 +217,7 @@ def stage_ptype(
         arr = np.asarray(fields[name]).reshape(n_rows, -1)
         if arr.dtype == np.uint64:
             arr = arr.view(np.int64)
-        arr = torch.from_numpy(np.ascontiguousarray(arr.astype(np.int64))).to(device)
+        arr = _upload(arr.astype(np.int64), device, non_blocking)
         bits = arr[order].contiguous().view(torch.float32)
         packed[:n_rows, start : start + bits.shape[1]] = bits
     return PTypeChunk(

@@ -527,11 +527,15 @@ def _keep_links(specs: Sequence[HaloTypeSpec], available) -> Tuple[HaloTypeSpec,
 
 @dataclass
 class EngineStats:
-    """Scheduling and throughput counters (the first four as the JAX
-    engine counts them)."""
+    """Scheduling and throughput counters (the first four, ``halos_done``,
+    ``n_overflow`` and the timing records as the JAX engine keeps them)."""
 
     n_bucket_calls: int = 0
     n_retries: int = 0
+    #: halos whose candidate rows overflowed their bucket's capacity
+    n_overflow: int = 0
+    #: halos ``process`` was given (0 for a chunk restored from scratch)
+    halos_done: int = 0
     #: aperture specs copied from the next-smaller aperture, per tile
     n_copied_specs: int = 0
     #: tiles run with sorted-prefix truncation
@@ -546,6 +550,55 @@ class EngineStats:
     #: wall seconds from each bucket's dispatch to its results on the
     #: host (device compute + transfers), summed
     compute_seconds: float = 0.0
+    #: wall seconds inside ``HaloEngine.process``, summed over chunks by
+    #: ``pipeline/chunks.py::process_chunks``
+    process_seconds: float = 0.0
+    #: per-spec wall seconds (``record_spec_timings``)
+    spec_seconds: Dict[str, float] = field(default_factory=dict)
+    #: (group, catalogue indices, seconds attributed to each halo) per
+    #: spec program and bucket (``record_spec_timings``)
+    spec_halo_chunks: List[Tuple[str, np.ndarray, np.ndarray]] = field(default_factory=list)
+    #: (catalogue indices, seconds, bucket rounds) per population run
+    #: (``record_halo_timings``)
+    halo_timing_chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = field(
+        default_factory=list)
+
+    def halo_timings(self) -> Optional[Dict[str, np.ndarray]]:
+        """{"index", "process_time", "n_loop"} per distinct catalogue
+        index, summed over the runs that covered it (the narrow and wide
+        passes), or None without records."""
+        if not self.halo_timing_chunks:
+            return None
+        idx = np.concatenate([c[0] for c in self.halo_timing_chunks])
+        sec = np.concatenate([c[1] for c in self.halo_timing_chunks])
+        loops = np.concatenate([c[2] for c in self.halo_timing_chunks])
+        uniq, inv = np.unique(idx, return_inverse=True)
+        sec_m = np.zeros(len(uniq))
+        loop_m = np.zeros(len(uniq), np.int32)
+        np.add.at(sec_m, inv, sec)
+        np.add.at(loop_m, inv, loops)
+        return {"index": uniq, "process_time": sec_m, "n_loop": loop_m}
+
+    def property_timings(self) -> Dict[str, Dict[int, float]]:
+        """{group: {catalogue index: seconds}} from the per-spec runs."""
+        out: Dict[str, Dict[int, float]] = {}
+        for group, idx, sec in self.spec_halo_chunks:
+            d = out.setdefault(group, {})
+            for i, t in zip(idx.tolist(), sec.tolist()):
+                d[i] = d.get(i, 0.0) + t
+        return out
+
+    def add(self, other: "EngineStats") -> None:
+        """Add ``other``'s counters, seconds and records to these."""
+        for f in dataclasses.fields(self):
+            mine, theirs = getattr(self, f.name), getattr(other, f.name)
+            if isinstance(mine, list):
+                mine.extend(theirs)
+            elif isinstance(mine, dict):
+                for k, v in theirs.items():
+                    mine[k] = mine.get(k, 0) + v
+            else:
+                setattr(self, f.name, mine + theirs)
 
 
 class HaloEngine:
@@ -554,7 +607,17 @@ class HaloEngine:
     ``tile_caps`` = (padded rows, halos) per bucket replaces the port's
     byte-sized row budget and batch cap, for instance with the JAX
     engine's multi-type plan (TARGET_ROWS // 5, 64), so that the two
-    engines cut the same hydro tiles."""
+    engines cut the same hydro tiles.
+
+    ``record_halo_timings``: each bucket's wall time is split over its
+    halos in proportion to candidate count + 1 and each halo's bucket
+    rounds are counted (``EngineStats.halo_timings``).
+    ``record_spec_timings``: every spec of a bucket runs as its own
+    program (a family's members alone, a radius multiple or a
+    property-sized aperture with its source, untruncated, each with its
+    own gather), timed to its results on the device, and its time split
+    over the bucket's halos likewise (``EngineStats.property_timings``);
+    slower, for profiling."""
 
     def __init__(
         self,
@@ -563,9 +626,13 @@ class HaloEngine:
         specs: Sequence[HaloTypeSpec],
         device,
         tile_caps: Optional[Tuple[int, int]] = None,
+        record_halo_timings: bool = False,
+        record_spec_timings: bool = False,
     ):
         self.device = torch.device(device)
         self.tile_caps = tile_caps
+        self.record_halo_timings = record_halo_timings
+        self.record_spec_timings = record_spec_timings
         for pt in chunk.ptypes.values():
             if pt.packed.device.type != self.device.type:
                 raise ValueError(
@@ -656,6 +723,7 @@ class HaloEngine:
             finally:
                 self._cross_copy_sources = None
                 self._pass = "one"
+            self.stats.halos_done = H
             return results
 
         # ---- central/satellite phases: satellites run no SO ----
@@ -684,9 +752,11 @@ class HaloEngine:
                 buf = results.setdefault(spec.group, {})
                 for key in spec.keys:
                     buf.setdefault(key, np.zeros(H, np.float32))
+            self.stats.halos_done = H
             return results
         self._run(centres, search_radius_phys, index, cen, fof_id,
                   enclose_radius_phys, specs, results, H)
+        self.stats.halos_done = H
         return results
 
     # -- one population through the round/tile machinery -----------------
@@ -700,6 +770,8 @@ class HaloEngine:
         )
         pending = np.arange(H)
         chi, clo = geometry.split_hi_lo(np.asarray(centres))
+        halo_seconds = np.zeros(H) if self.record_halo_timings else None
+        halo_nloop = np.zeros(H, np.int32) if self.record_halo_timings else None
 
         so_targets = []
         for s in specs:
@@ -737,7 +809,8 @@ class HaloEngine:
         while len(pending):
             # truncation only in the first round: a retried halo carries
             # a grown radius (and maybe a lying EncloseRadius)
-            do_trunc = trunc_enabled and first_round
+            # (per-spec programs run untruncated, as the JAX engine's do)
+            do_trunc = trunc_enabled and first_round and not self.record_spec_timings
             # ---- presize + exact candidate counts ----
             n = len(pending)
             c_pad = chi[pending].astype(np.float32)
@@ -885,16 +958,25 @@ class HaloEngine:
 
                 t0 = time.perf_counter()
                 ctx = dataclasses.replace(ctx0, capacities=pl["caps"])
-                out, overflow = _process_bucket(
-                    ctx, pl["specs"], pl["cubes"], pl["S"], self.chunk,
-                    *(self._tensor(x) for x in
-                      (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof)),
-                    pl["trunc"], self.stats.k1_launches_by_ptype,
-                    self.stats.k2_launches_by_group,
-                )
-                out = _to_host(out, nb)
-                ov = overflow[:nb].cpu().numpy()
-                self.stats.compute_seconds += time.perf_counter() - t0
+                halo_args = tuple(self._tensor(x) for x in
+                                  (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof))
+                w = totals[pl["sel"]].astype(np.float64) + 1.0
+                if self.record_spec_timings:
+                    out, ov = self._timed_specs(ctx, pl, halo_args, nb, index[g], w)
+                else:
+                    out, overflow = _process_bucket(
+                        ctx, pl["specs"], pl["cubes"], pl["S"], self.chunk, *halo_args,
+                        pl["trunc"], self.stats.k1_launches_by_ptype,
+                        self.stats.k2_launches_by_group,
+                    )
+                    out = _to_host(out, nb)
+                    ov = overflow[:nb].cpu().numpy()
+                dt = time.perf_counter() - t0
+                self.stats.compute_seconds += dt
+                if halo_seconds is not None:
+                    halo_seconds[g] += dt * w / w.sum()
+                    halo_nloop[g] += 1
+                self.stats.n_overflow += int(ov.sum())
                 self.stats.n_bucket_calls += 1
                 self.stats.bucket_calls_by_pass[self._pass] = (
                     self.stats.bucket_calls_by_pass.get(self._pass, 0) + 1
@@ -948,3 +1030,30 @@ class HaloEngine:
                     next_pending.extend(grown.tolist())
                     self.stats.n_retries += len(grown)
             pending = np.array(sorted(next_pending), dtype=np.int64)
+        if halo_seconds is not None:
+            self.stats.halo_timing_chunks.append(
+                (np.asarray(index, np.int64).copy(), halo_seconds, halo_nloop))
+
+    def _timed_specs(self, ctx, pl, halo_args, nb, index, w):
+        """A bucket with every spec as its own program, each timed to its
+        results on the device; returns the host results and overflow."""
+        by_group = {s.group: s for s in pl["specs"]}
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        for spec in pl["specs"]:
+            # a radius multiple or a property-sized aperture runs with the
+            # spec it reads, so that chain stays in one program
+            src = spec.radius_multiple_of or (spec.radius_property or (None,))[0]
+            tup = (by_group[src], spec) if src in by_group else (spec,)
+            t0 = time.perf_counter()
+            o, overflow = _process_bucket(
+                ctx, tup, pl["cubes"], pl["S"], self.chunk, *halo_args, pl["trunc"],
+                self.stats.k1_launches_by_ptype, self.stats.k2_launches_by_group,
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            self.stats.spec_seconds[spec.group] = self.stats.spec_seconds.get(spec.group, 0.0) + dt
+            self.stats.spec_halo_chunks.append(
+                (spec.group, np.asarray(index, np.int64).copy(), dt * w / w.sum()))
+            out[spec.group] = _to_host({spec.group: o[spec.group]}, nb)[spec.group]
+        return out, overflow[:nb].cpu().numpy()

@@ -1,19 +1,24 @@
-"""The halo-properties entry on one chunk: inputs in, SOAP catalogue out.
+"""The halo-properties entry: inputs in, SOAP catalogue out.
 
-The port's copy of ``soap_tpu/pipeline/run.py``, for one chunk, one
-device and HBTplus catalogues, in two halves:
+The port's copy of ``soap_tpu/pipeline/run.py``, for one device and
+HBTplus catalogues, in two halves:
 
 - ``build_catalogue`` (torch and numpy only; runs on the card): from a
-  snapshot-metadata object, a ``HaloCatalogue``, the host particle
-  fields of the chunk and the spec list, it runs the engine, the
-  category filters, ``drop_disabled_keys``, the spatial sort and the
-  derived ``SOAP/*`` columns, and returns the sorted, unit-annotated
-  ``io/catalogue.py::Catalogue``;
+  snapshot-metadata object, a ``HaloCatalogue``, the particle fields
+  (every cell's, or a chunk reader) and the spec list, it runs the
+  engine over the run's Peano–Hilbert chunks (``pipeline/chunks.py::
+  process_chunks``: read-ahead staging, scratch files and restart, a
+  host's share of a multi-host run and the combine), the category
+  filters, ``drop_disabled_keys``, the spatial sort and the derived
+  ``SOAP/*`` columns, and returns the sorted, unit-annotated
+  ``io/catalogue.py::Catalogue``, with per-halo and per-property
+  timings when asked;
 - ``compute_halo_properties`` (the JAX signature): reads the SWIFT
-  snapshot, the membership file and the HBTplus catalogues, calls
-  ``build_catalogue`` and writes the catalogue and the
-  ``SOAP.used_parameters.yml`` mirror.  Only this half opens files;
-  h5py and yaml are imported inside the functions that do.
+  snapshot's metadata, the membership file and the HBTplus catalogues,
+  calls ``build_catalogue`` with a file reader and writes the catalogue
+  and the ``SOAP.used_parameters.yml`` mirror.  Only this half opens
+  files; h5py and yaml are imported inside the functions that do (the
+  scratch files of ``scratch_dir`` are files too).
 
 ``make_context`` turns snapshot metadata into the engine's
 ``HaloContext`` (a parameter file sets the recently-heated and cold
@@ -29,7 +34,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +47,14 @@ from soap_tpu_torch.core.units import UnitRegistry
 from soap_tpu_torch.io.catalogue import Catalogue, make_catalogue, spatial_sort_order
 from soap_tpu_torch.io.fof_catalogue import fof_join
 from soap_tpu_torch.io.halo_catalogue import HaloCatalogue, hbtplus_catalogue
+from soap_tpu_torch.io.swift_snapshot import mask_cells_for_spheres
 from soap_tpu_torch.models.context import HaloContext
+from soap_tpu_torch.parallel import multihost
 from soap_tpu_torch.pipeline import derived
-from soap_tpu_torch.pipeline.chunks import read_chunk_fields, stage_chunk
-from soap_tpu_torch.pipeline.engine import EngineStats, HaloEngine, HaloTypeSpec, min_physical_radius
+from soap_tpu_torch.pipeline.chunks import (
+    ChunkRecord, file_reader, memory_reader, process_chunks,
+)
+from soap_tpu_torch.pipeline.engine import EngineStats, HaloTypeSpec, min_physical_radius
 from soap_tpu_torch.pipeline.specs import build_specs
 from soap_tpu_torch.utils import mock_data
 
@@ -100,6 +109,11 @@ class SnapshotInfo:
     cell_size: np.ndarray  # (3,) comoving
     cell_centres: np.ndarray  # (nr_cells, 3) comoving
     units: UnitRegistry
+
+    def mask_cells_for_spheres(self, centres, radii, select=None) -> np.ndarray:
+        """``io/swift_snapshot.py::mask_cells_for_spheres`` over these cells."""
+        return mask_cells_for_spheres(
+            self.cell_centres, self.cell_size, self.boxsize, centres, radii, select)
 
 
 #: datasets the membership pass adds to every particle type
@@ -432,14 +446,16 @@ def _progress(msg: str) -> None:
 
 @dataclass
 class EntryResult:
-    """What a run of the entry returns: the catalogue, the filtered engine
-    results in catalogue (unsorted) order, the halos, the spatial sort
-    order, the engine's counters and context, and the seconds spent
-    on the host before the chunk is staged (selections, context), staging
-    it, in the engine, and after it on the host (filters, sort, derived
-    columns, catalogue)."""
+    """What a run of the entry returns: the catalogue (None on a host of
+    a multi-host run that did not combine), the filtered engine results
+    in catalogue (unsorted) order (a multi-host combiner's columns are
+    read from the scratch files on access), the halos, the spatial sort
+    order, the engine's counters and context, one record per chunk, and
+    the seconds spent on the host before the chunk loop (selections,
+    context), waiting in it for reads and staging, in the engine, and
+    after it (filters, sort, derived columns, catalogue)."""
 
-    catalogue: Catalogue
+    catalogue: Optional[Catalogue]
     results: Dict[str, Dict[str, np.ndarray]]
     halos: HaloCatalogue
     order: np.ndarray
@@ -449,13 +465,14 @@ class EntryResult:
     stage_seconds: float
     engine_seconds: float
     post_seconds: float
+    chunks: List[ChunkRecord]
     output_path: Optional[str] = None
 
 
 def build_catalogue(
     meta,
     cat: HaloCatalogue,
-    host: Mapping[str, Tuple[np.ndarray, Dict[str, np.ndarray]]],
+    host,
     specs: Sequence[HaloTypeSpec],
     parameter_file: Optional[ParameterFile] = None,
     dmo: bool = True,
@@ -471,15 +488,38 @@ def build_catalogue(
     membership_file: str = "",
     halo_basename: str = "",
     halo_format: str = "HBTplus",
+    nr_chunks: int = 1,
+    scratch_dir: Optional[str] = None,
+    host_index: Optional[int] = None,
+    host_count: Optional[int] = None,
+    record_halo_timings: bool = False,
+    record_property_timings: bool = False,
+    prefetch: bool = True,
+    verbose: bool = False,
 ) -> EntryResult:
     """The in-memory half of the entry, on ``device``.
 
     ``meta`` is a snapshot-metadata object (``mock_metadata`` or
     ``io/swift_snapshot.py::SnapshotMetadata``), ``cat`` the halo
-    catalogue, ``host`` the chunk's particle fields per type as
-    ``pipeline/chunks.py::read_chunk_fields`` or ``mock_fields`` give
-    them for ``entry_plan``'s types and this spec list.  The selections,
-    the adjacent catalogues (``SOAP/ProgenitorIndex``,
+    catalogue.  ``host`` is either every cell's particle fields per type
+    (as ``pipeline/chunks.py::mock_fields`` or ``read_chunk_fields``
+    give them for ``entry_plan``'s types and this spec list), staged
+    whole with one chunk and through ``chunks.memory_reader`` with more,
+    or a chunk reader ``read(rows)`` over the rows of the selected
+    catalogue (``chunks.file_reader``).
+
+    ``nr_chunks`` Peano–Hilbert chunks run one after another, with
+    read-ahead staging unless ``prefetch`` is off; ``scratch_dir`` keeps
+    one scratch file per chunk and reuses the valid ones.  A host of a
+    multi-host run (``host_index`` of ``host_count``; by default from
+    ``parallel/multihost.py::detect_host_rank``) computes its
+    round-robin share of the chunks into ``scratch_dir``; the first host
+    to find them all complete claims the combine and builds the
+    catalogue, the others return theirs without one.
+    ``record_halo_timings`` adds ``InputHalos/process_time``, ``n_loop``
+    and ``n_process``; ``record_property_timings`` runs every spec as
+    its own program and adds a ``<property>_time`` dataset per property.
+    The selections, the adjacent catalogues (``SOAP/ProgenitorIndex``,
     ``SOAP/DescendantIndex``), the SWIFT FOF groups (``FOF/*``) and the
     input names recorded under ``Parameters`` are as in the JAX
     ``compute_halo_properties``."""
@@ -501,33 +541,65 @@ def build_catalogue(
         np.maximum(cat.search_radius * meta.a, min_read_radius_mpc), min_physical_radius(specs)
     )
     ptypes, specs = entry_plan(meta, dmo, parameter_file, specs)
-    if sorted(host) != sorted(ptypes):
-        raise ValueError(f"host fields for {sorted(host)}, the run stages {ptypes}")
+    if callable(host):
+        read_chunk = host
+    else:
+        if sorted(host) != sorted(ptypes):
+            raise ValueError(f"host fields for {sorted(host)}, the run stages {ptypes}")
+        fields = {pt: host[pt] for pt in ptypes}
+        read_chunk = (
+            (lambda rows: fields) if nr_chunks == 1
+            else memory_reader(meta, cat, fields, specs)
+        )
     ctx = make_context(meta, ptypes, dmo, parameter_file)
 
-    stats = EngineStats()
-    results: Dict[str, Dict[str, np.ndarray]] = {}
-    stage_seconds = engine_seconds = 0.0
+    # a multi-host run: this host's round-robin share of the chunks
+    if host_index is None and host_count is None:
+        host_index, host_count = multihost.detect_host_rank()
+    chunk_subset = None
+    if host_count and host_count > 1:
+        if not scratch_dir:
+            raise ValueError("a multi-host run needs a scratch_dir")
+        chunk_subset = multihost.chunks_for_host(nr_chunks, host_index or 0, host_count)
+        if verbose:
+            _progress(f"host {host_index}/{host_count}: chunks {chunk_subset}")
+
     t0 = time.perf_counter()
-    if cat.nr_halos:
-        chunk = stage_chunk({pt: host[pt] for pt in ptypes}, meta.boxsize, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        engine = HaloEngine(ctx, chunk, specs, device)
-        results = engine.process(
-            centres=cat.cofp,
-            search_radius_phys=search_radius_phys,
-            index=cat.index,
-            is_central=cat.is_central.astype(bool),
-            fof_id=cat.fof_id,
-            # upper bound on EncloseRadius (HBT search radius = 1.01 x REnclose)
-            enclose_radius_phys=cat.search_radius * meta.a,
-        )
-        stats = engine.stats
-        del engine, chunk
-        stage_seconds, engine_seconds = t1 - t0, time.perf_counter() - t1
+    results, stats, records = process_chunks(
+        read_chunk, cat, ctx, specs, search_radius_phys, device, nr_chunks=nr_chunks,
+        scratch_dir=scratch_dir, chunk_subset=chunk_subset, prefetch=prefetch,
+        record_halo_timings=record_halo_timings,
+        record_property_timings=record_property_timings, verbose=verbose,
+    )
     t_post = time.perf_counter()
+    stage_seconds = sum(r.wait_seconds for r in records)
+    engine_seconds = sum(r.engine_seconds for r in records)
+
+    def uncombined(reason: str) -> EntryResult:
+        if verbose:
+            _progress(reason)
+        return EntryResult(
+            catalogue=None, results=results, halos=cat, order=np.arange(cat.nr_halos),
+            stats=stats, ctx=ctx, prep_seconds=t0 - t_start, stage_seconds=stage_seconds,
+            engine_seconds=engine_seconds, post_seconds=0.0, chunks=records)
+
+    if chunk_subset is not None and (host_index != 0 or len(chunk_subset) < nr_chunks):
+        # exactly one host combines and builds the catalogue: the first
+        # to find every scratch file complete claims it (O_EXCL lock)
+        try:
+            multihost.check_scratch_complete(scratch_dir, specs, cat.nr_halos)
+        except (FileNotFoundError, RuntimeError) as e:
+            return uncombined(f"skipping combine ({e}); partial results only")
+        if not multihost.claim_combine(scratch_dir):
+            return uncombined("another host claimed the combine; partial results only "
+                           "(delete combine.lock to re-run)")
+        try:
+            results = multihost.combine_scratch(scratch_dir, specs, cat.nr_halos, lazy=True)
+        except (FileNotFoundError, RuntimeError) as e:
+            multihost.release_combine(scratch_dir)
+            return uncombined(f"skipping combine ({e}); partial results only")
+        if verbose:
+            _progress("combined all hosts' scratch files (combine claimed)")
 
     # --- category filters: zero masked halos, record metadata ---
     cat_filter = CategoryFilter(
@@ -589,6 +661,30 @@ def build_catalogue(
         **cat.passthrough,
         **soap_cols,
     }
+    timings = stats.halo_timings() if record_halo_timings else None
+    if timings is not None:
+        # per-halo timing datasets (reference ``--record-halo-timings``,
+        # ``halo_centres.py:183-218``): seconds, bucket rounds, and
+        # whether this run processed the halo (not from scratch)
+        pos = {int(i): p for p, i in enumerate(timings["index"])}
+        rows = np.array([pos.get(int(i), -1) for i in cat.index], dtype=np.int64)
+        ok = rows >= 0
+        input_halos["process_time"] = np.zeros(cat.nr_halos, np.float32)
+        input_halos["n_loop"] = np.zeros(cat.nr_halos, np.int32)
+        input_halos["process_time"][ok] = timings["process_time"][rows[ok]]
+        input_halos["n_loop"][ok] = timings["n_loop"][rows[ok]]
+        input_halos["n_process"] = ok.astype(np.int32)
+    property_timings = None
+    if record_property_timings and stats.spec_halo_chunks:
+        # per-group per-halo seconds: one ``_time`` dataset per property
+        property_timings = {}
+        pos_of = {int(i): p for p, i in enumerate(cat.index)}
+        for group, tmap in stats.property_timings().items():
+            arr = np.zeros(cat.nr_halos, np.float32)
+            for i, sec in tmap.items():
+                if int(i) in pos_of:
+                    arr[pos_of[int(i)]] = sec
+            property_timings[group] = arr
     catalogue = make_catalogue(
         meta,
         meta.units,
@@ -598,6 +694,7 @@ def build_catalogue(
         git_hash=_git_hash(),
         dataset_extra_attrs=filter_attrs,
         group_attrs=group_attrs,
+        property_timings=property_timings,
         run_parameters={
             "swift_filename": snapshot_file,
             "membership_filename": membership_file or "",
@@ -614,7 +711,7 @@ def build_catalogue(
     return EntryResult(
         catalogue=catalogue, results=results, halos=cat, order=order, stats=stats, ctx=ctx,
         prep_seconds=t0 - t_start, stage_seconds=stage_seconds, engine_seconds=engine_seconds,
-        post_seconds=time.perf_counter() - t_post,
+        post_seconds=time.perf_counter() - t_post, chunks=records,
     )
 
 
@@ -643,34 +740,27 @@ def compute_halo_properties(
     record_property_timings: bool = False,
     verbose: bool = True,
     device="cuda",
+    prefetch: bool = True,
+    io_processes: int = 0,
 ) -> EntryResult:
-    """The file half of the entry: one snapshot, one chunk, one device.
+    """The file half of the entry: one snapshot on one device.
 
     Reads the snapshot's metadata (with the membership file as extra
-    input), the HBTplus catalogue, the chunk's particles and, when
-    named, the adjacent catalogues and the SWIFT FOF groups; runs
-    ``build_catalogue`` on ``device``; writes ``output_file`` and, with
-    a parameter file, ``SOAP.used_parameters.yml`` beside it.  Multi-chunk
-    and multi-host runs, per-halo and per-property timings and the other
-    finders raise ``NotImplementedError``."""
+    input), the HBTplus catalogue and, when named, the adjacent
+    catalogues and the SWIFT FOF groups; runs ``build_catalogue`` with a
+    reader of the snapshot's cells (``chunks.file_reader``; over
+    ``io_processes`` worker processes when more than one) on ``device``,
+    with its chunk, scratch, multi-host and timing options; writes
+    ``output_file`` and, with a parameter file, ``SOAP.used_parameters.yml``
+    beside it, unless this host did not combine.  The other finders raise
+    ``NotImplementedError``; a process runs on the one device it is given
+    (halo batches across several GPUs are not ported)."""
     from soap_tpu_torch.io.catalogue_writer import write_catalogue
     from soap_tpu_torch.io.fof_catalogue import read_fof_groups
     from soap_tpu_torch.io.halo_catalogue import read_hbtplus_catalogue
     from soap_tpu_torch.io.swift_snapshot import SnapshotMetadata
 
-    later = "ROADMAP queue 1's multi-chunk, multi-GPU and multi-host item"
-    if nr_chunks != 1:
-        raise NotImplementedError(f"nr_chunks={nr_chunks}: the port runs one chunk; {later}")
-    if scratch_dir is not None:
-        raise NotImplementedError(f"scratch_dir: no scratch files on one chunk; {later}")
-    if host_count is not None and host_count > 1:
-        raise NotImplementedError(f"host_count={host_count}: one host only; {later}")
-    if record_halo_timings or record_property_timings:
-        raise NotImplementedError(
-            "per-halo and per-property timings come with the chunk loop that records "
-            f"them: {later}")
     _check_halo_format(halo_format)
-
     t0 = time.time()
     meta = SnapshotMetadata(
         snapshot_file, [membership_file] if membership_file else [],
@@ -678,13 +768,8 @@ def compute_halo_properties(
     )
     cat = read_hbtplus_catalogue(halo_basename, h=meta.h, a=meta.a)
     ptypes, specs = entry_plan(meta, dmo, parameter_file, specs)
-    ages = age_table(meta)
     selected = select_halos(cat, halo_indices, centrals_only, max_halos)
-    host = read_chunk_fields(meta, selected, specs, ptypes, ages)
-    if verbose:
-        n_read = sum(len(pos) for pos, _ in host.values())
-        _progress(f"[{time.time()-t0:6.1f}s] read {n_read} particles for "
-                  f"{selected.nr_halos} halos")
+    reader = file_reader(meta, selected, specs, ptypes, age_table(meta), io_processes)
 
     adjacent = {}
     for name, basename in (("prev", prev_halo_basename), ("next", next_halo_basename)):
@@ -696,17 +781,24 @@ def compute_halo_properties(
                 if verbose:
                     _progress(f"no adjacent catalogue for the {name} snapshot: {basename}")
     run = build_catalogue(
-        meta, selected, host, specs, parameter_file, dmo, device=device,
+        meta, selected, reader, specs, parameter_file, dmo, device=device,
         centrals_only=centrals_only, max_halos=max_halos, halo_indices=halo_indices,
         min_read_radius_mpc=min_read_radius_mpc,
         prev_catalogue=adjacent["prev"], next_catalogue=adjacent["next"],
         fof_groups=read_fof_groups(fof_filename) if fof_filename else None,
         snapshot_file=snapshot_file, membership_file=membership_file,
         halo_basename=halo_basename, halo_format=halo_format,
+        nr_chunks=nr_chunks, scratch_dir=scratch_dir, host_index=host_index,
+        host_count=host_count, record_halo_timings=record_halo_timings,
+        record_property_timings=record_property_timings, prefetch=prefetch,
+        verbose=verbose,
     )
     if verbose:
-        _progress(f"[{time.time()-t0:6.1f}s] processed {run.halos.nr_halos} halos in "
-                  f"{run.stats.n_bucket_calls} bucket calls ({run.stats.n_retries} retries)")
+        _progress(f"[{time.time()-t0:6.1f}s] processed {run.stats.halos_done} halos in "
+                  f"{run.stats.n_bucket_calls} bucket calls ({run.stats.n_retries} retries) "
+                  f"over {len(run.chunks)} chunks")
+    if run.catalogue is None:
+        return run
     if output_file and parameter_file is not None:
         # mirror of SWIFT's .used_parameters output
         parameter_file.write_parameters(os.path.join(

@@ -16,6 +16,7 @@ import shutil
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from soap_tpu.core.params import ParameterFile as JaxParameterFile
 from soap_tpu.io import swift_snapshot as jax_snap
@@ -407,14 +408,42 @@ def test_in_memory_half_equals_file_half(sims, mem_dmo, tmp_path):
     dict(halo_format="VR"),
 ])
 def test_unsupported_arguments_raise(sims, tmp_path, arg):
+    """Another finder raises NotImplementedError, and a multi-host run
+    without a scratch directory ValueError, both before writing; the
+    chunk, scratch and timing arguments the port once refused now run
+    and write the catalogue with what they add."""
     s = sims["dmo"]
-    with pytest.raises(NotImplementedError):
-        run.compute_halo_properties(
-            s["snapshot"], s["membership"], s["hbt_basename"], str(tmp_path / "out.hdf5"),
-            device="cpu", verbose=False, **arg)
-    assert not os.path.exists(tmp_path / "out.hdf5")
-    if "halo_format" in arg:
-        meta = run.mock_metadata(s["uni"])
-        with pytest.raises(NotImplementedError):
-            run.build_catalogue(meta, run.mock_catalogue(s["uni"]), {}, [], device="cpu",
-                                halo_format=arg["halo_format"])
+    out = tmp_path / "out.hdf5"
+    kw = dict(arg, scratch_dir=str(tmp_path / arg["scratch_dir"])) if "scratch_dir" in arg \
+        else arg
+    if "halo_format" in arg or "host_count" in arg:
+        error = NotImplementedError if "halo_format" in arg else ValueError
+        with pytest.raises(error):
+            run.compute_halo_properties(
+                s["snapshot"], s["membership"], s["hbt_basename"], str(out),
+                device="cpu", verbose=False, **kw)
+        assert not os.path.exists(out)
+        if "halo_format" in arg:
+            meta = run.mock_metadata(s["uni"])
+            with pytest.raises(NotImplementedError):
+                run.build_catalogue(meta, run.mock_catalogue(s["uni"]), {}, [], device="cpu",
+                                    halo_format=arg["halo_format"])
+        return
+    # one torch thread: beside other test workers the default pool makes
+    # the per-spec programs of record_property_timings many times slower
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = run.compute_halo_properties(
+            s["snapshot"], s["membership"], s["hbt_basename"], str(out), device="cpu",
+            verbose=False, **kw)
+    finally:
+        torch.set_num_threads(threads)
+    names = set(read_catalogue(str(out)).datasets)
+    assert len(got.chunks) == arg.get("nr_chunks", 1)
+    if "scratch_dir" in kw:
+        assert os.listdir(kw["scratch_dir"]) == ["chunk_0.hdf5"]
+    if "record_halo_timings" in arg:
+        assert {"InputHalos/process_time", "InputHalos/n_loop"} <= names
+    if "record_property_timings" in arg:
+        assert "BoundSubhalo/TotalMass_time" in names

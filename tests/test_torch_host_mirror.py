@@ -102,7 +102,8 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     """Importing the port, building its spec lists (the defaults and a
     shipped JSON parameter file's) and a context from that file, and
     running the entry's in-memory half (``build_catalogue``) on the CPU
-    with that file's list, loads no jax, soap_tpu, h5py or yaml; the
+    with that file's list, and over three chunks with the in-memory
+    reader and read-ahead, loads no jax, soap_tpu, h5py or yaml; the
     import primes the CPU math library."""
     code = (
         "import sys\n"
@@ -142,6 +143,14 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "                          device='cpu')\n"
         "assert out.catalogue.n_halos == 2\n"
         "assert 'SOAP/HostHaloIndex' in out.catalogue.datasets\n"
+        # the chunk loop in memory: three chunks, read-ahead on
+        "uni = build_mock_universe(n_halos=6, n_field=600, boxsize=24.0, seed=5)\n"
+        "meta = run.mock_metadata(uni)\n"
+        "ptypes, specs = run.entry_plan(meta, True, None)\n"
+        "host = mock_fields(uni, specs, meta, ptypes, run.age_table(meta))\n"
+        "out = run.build_catalogue(meta, run.mock_catalogue(uni), host, specs, device='cpu',\n"
+        "                          nr_chunks=3, prefetch=True)\n"
+        "assert len(out.chunks) == 3 and out.catalogue.n_halos == 6\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"
@@ -321,3 +330,84 @@ def test_make_context_with_parameter_file_matches(written_hydro_mock, name):
     assert torch_chunks.required_datasets(specs, ours) == jax_required(
         jax_specs.build_specs(jparams, False, theirs.virBN98), theirs
     )
+
+
+def test_domain_mirrors_original():
+    """The copied Peano–Hilbert chunking (``tests/test_torch_domain.py``
+    holds it to both of the JAX package's paths at every size)."""
+    from soap_tpu.parallel.domain import peano_decomposition as jax_peano
+    from soap_tpu_torch.parallel.domain import peano_decomposition
+
+    centres = np.random.default_rng(2).random((500, 3)) * 30.0
+    np.testing.assert_array_equal(peano_decomposition(centres, 30.0, 5),
+                                  jax_peano(centres, 30.0, 5))
+
+
+def test_scratch_layout_mirrors_original(tmp_path):
+    """A chunk scratch file of the port has the JAX package's layout:
+    the same datasets, dtypes, shapes and attributes, the version
+    attribute naming the writing package; each package reads the
+    other's file back."""
+    import h5py
+
+    from soap_tpu.pipeline.chunks import _try_load_scratch as jax_load
+    from soap_tpu.pipeline.chunks import _write_scratch as jax_write
+    from soap_tpu_torch.pipeline import chunks as torch_chunks
+
+    args = [dict(kind="bound", group="BoundSubhalo", keys=("Mtot", "com")),
+            dict(kind="SO", group="SO/200_crit", keys=("r",), so_type="crit", so_multiple=200.0)]
+    ours = [torch_engine.HaloTypeSpec(**a) for a in args]
+    theirs = [jax_engine.HaloTypeSpec(**a) for a in args]
+    rows = np.array([3, 5, 8])
+    rng = np.random.default_rng(1)
+    results = {"BoundSubhalo": {"Mtot": rng.random(3).astype(np.float32),
+                                "com": rng.random((3, 3)).astype(np.float32)},
+               "SO/200_crit": {"r": rng.random(3).astype(np.float32)}}
+    paths = {name: str(tmp_path / f"{name}.hdf5") for name in ("port", "jax")}
+    torch_chunks.write_scratch(paths["port"], ours, rows, results)
+    jax_write(paths["jax"], theirs, rows, results)
+
+    def layout(path):
+        out = {}
+        with h5py.File(path, "r") as f:
+            f.visititems(lambda n, o: out.setdefault(n, (o.dtype.str, o.shape))
+                         if isinstance(o, h5py.Dataset) else None)
+            attrs = {k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+        return out, attrs
+
+    (ds_p, at_p), (ds_j, at_j) = layout(paths["port"]), layout(paths["jax"])
+    assert ds_p == ds_j
+    assert at_p.pop("soap_tpu_version").startswith(b"soap_tpu_torch ")
+    assert at_j.pop("soap_tpu_version") == b"0.1.0"
+    assert at_p == at_j
+    assert not os.path.exists(paths["port"] + ".tmp")
+    for got in (jax_load(paths["port"], theirs, rows),
+                torch_chunks.try_load_scratch(paths["jax"], ours, rows)):
+        for group, props in results.items():
+            for key, arr in props.items():
+                assert got[group][key].tobytes() == arr.tobytes()
+    assert torch_chunks.try_load_scratch(paths["port"], ours, rows[::-1]) is None
+
+
+def test_lock_format_mirrors_original(tmp_path):
+    """The combine lock: each package reads the other's lock as held by
+    a live process and takes over the other's stale one."""
+    import subprocess
+
+    from soap_tpu.parallel import multihost as jax_multihost
+    from soap_tpu_torch.parallel import multihost
+
+    d = str(tmp_path)
+    assert multihost.claim_combine(d)
+    with open(os.path.join(d, "combine.lock")) as f:
+        assert f.read() == multihost.lock_line()
+    assert not jax_multihost.claim_combine(d)
+    jax_multihost.release_combine(d)
+    assert jax_multihost.claim_combine(d)
+    assert not multihost.claim_combine(d)
+    # a stale lock (a dead pid of this host) in the JAX package's format
+    p = subprocess.Popen(["sleep", "0.01"])
+    p.wait()
+    with open(os.path.join(d, "combine.lock"), "w") as f:
+        f.write(multihost.lock_line().replace(f"pid={os.getpid()}", f"pid={p.pid}"))
+    assert multihost.claim_combine(d)
