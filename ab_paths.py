@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Main-path throughput of two or more source trees on one GPU, in turns.
 
-    python3 ab_paths.py ROOT [ROOT ...] [--passes N]
+    python3 ab_paths.py ROOT [ROOT ...] [--passes N] [--path main|hydro]
 
 Each ROOT is a checkout (or an unpacked ``git archive``) that holds
 ``soap_tpu_torch/`` and ``chip_smoke.py``.  For each ROOT in the order
@@ -10,8 +10,11 @@ given, a fresh process imports both from that ROOT, stages
 ``chip_smoke._bench_inputs`` (its spec list and arguments), runs two warm
 passes and N timed passes (default 7), and prints one JSON line: the
 root, the card, each pass's halos/s, their median and the peak device
-memory.  To compare two trees, give them as parent, change, change,
-parent.  Exits 1 without a CUDA device.
+memory.  ``--path hydro`` runs ``chip_smoke.HYDRO``'s universe (the
+hydro path: bench.py::bench_hydro's at 2048 halos) with that tree's
+``chip_smoke._hydro_inputs`` and the default hydro list instead.  To
+compare two trees, give them as parent, change, change, parent.  Exits
+1 without a CUDA device.
 """
 
 import json
@@ -20,7 +23,7 @@ import sys
 import time
 
 
-def child(root: str, passes: int) -> None:
+def child(root: str, passes: int, path: str) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -30,8 +33,12 @@ def child(root: str, passes: int) -> None:
     from soap_tpu_torch.utils.mock_data import build_mock_universe
 
     dev = torch.device("cuda", 0)
-    uni = build_mock_universe(**cs.BENCH)
-    ctx, chunk, args, specs = cs._bench_inputs(uni, dev)
+    if path == "hydro":
+        uni = build_mock_universe(**cs.HYDRO)
+        ctx, chunk, args, specs = cs._hydro_inputs(uni, dev)
+    else:
+        uni = build_mock_universe(**cs.BENCH)
+        ctx, chunk, args, specs = cs._bench_inputs(uni, dev)
     for _ in range(2):
         HaloEngine(ctx, chunk, specs, dev).process(**args)
     torch.cuda.synchronize()
@@ -45,7 +52,7 @@ def child(root: str, passes: int) -> None:
         torch.cuda.synchronize()
         rates.append(uni.n_halos / (time.perf_counter() - t0))
     print(json.dumps({
-        "root": root, "card": torch.cuda.get_device_name(0),
+        "root": root, "path": path, "card": torch.cuda.get_device_name(0),
         "keys": sum(len(s.keys) for s in specs),
         "halos_per_s": [round(r, 2) for r in rates],
         "median": round(float(np.median(rates)), 2),
@@ -56,12 +63,17 @@ def child(root: str, passes: int) -> None:
 def main() -> int:
     argv = sys.argv[1:]
     if argv[:1] == ["--child"]:
-        child(argv[1], int(argv[2]))
+        child(argv[1], int(argv[2]), argv[3])
         return 0
     passes = 7
     if "--passes" in argv:
         i = argv.index("--passes")
         passes = int(argv[i + 1])
+        del argv[i : i + 2]
+    path = "main"
+    if "--path" in argv:
+        i = argv.index("--path")
+        path = argv[i + 1]
         del argv[i : i + 2]
     import torch
 
@@ -70,7 +82,7 @@ def main() -> int:
         return 1
     for root in argv:
         subprocess.run(
-            [sys.executable, __file__, "--child", root, str(passes)], check=True
+            [sys.executable, __file__, "--child", root, str(passes), path], check=True
         )
     return 0
 

@@ -32,6 +32,20 @@ Phases, each printing its lines and raising on failure:
     holes: every key within the tests' tolerances, equal counters, K1
     launched for every particle type, K2 for gas, star and luminosity
     configs;
+ 5c. bucket capacity: phase 5's DMO run and phase 5h's hydro run, and
+    both at the catalogue's EncloseRadius, on the GPU twice: with tile
+    caps of CAPACITY_ROW_FACTOR times the row budget and the default
+    halo cap (each round in one bucket), and of the row budget and one
+    halo per bucket, so a halo's rows are padded to the largest of its
+    round or to its own (the phase prints the ratio per halo); every key
+    of the two runs must be bit-equal, but
+    the keys CAPACITY_EXCEPTIONS names for phases 5 and 5h (their
+    understated EncloseRadius makes the aperture copy plan-dependent);
+ 5n. neutrino delta-f weights: phase 5h's mock with a PartType6 population
+    (``utils/mock_data.py::add_neutrinos``: masses and weights, about half
+    of them negative) and FLAMINGO's SO groups (the ones that read
+    neutrinos), GPU against CPU at the parity tolerances, K1 launched for
+    PartType6;
  5p. the same for the COLIBRE_THERMAL (50 calculations, 4114 keys) and
     FLAMINGO (38, 2103) parameter files' lists and contexts on that mock,
     and for COLIBRE_THERMAL's new spec kinds with every property enabled
@@ -94,7 +108,16 @@ Phases, each printing its lines and raising on failure:
     n_loop, process_time > 0, every _time dataset >= 0 with a positive
     sum and equal within a spec);
  14. the chunked FLAMINGO entry: phase 12's inputs as phase 13 runs
-    phase 11's, FLAMINGO_CHUNKED_PASSES timed passes, against phase 12.
+    phase 11's, FLAMINGO_CHUNKED_PASSES timed passes, against phase 12;
+ 15. the FLAMINGO entry with neutrinos: phase 12's universe and file with a
+    PartType6 population of NU_RATIO of its dark matter count (FLAMINGO
+    L1_m9's 1000^3 neutrinos to 1800^3 dark matter particles), a warm, a
+    timed and a checked pass; RawNeutrinoMass, NoiseSuppressedNeutrinoMass
+    and NumberOfNeutrinoParticles of the 16 most massive centrals against
+    float64 numpy sums inside the SO radius the port reports;
+ 16. the membership program's in-memory join on the card's host: phase 6's
+    universe's IDs, in its snapshot order, against its bound lists;
+    GroupNr_bound and Rank_bound must equal the labels the mock gives.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -124,13 +147,15 @@ from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
 from soap_tpu_torch.parallel.domain import peano_decomposition
 from soap_tpu_torch.pipeline import chunks
 from soap_tpu_torch.pipeline.chunks import mock_fields, stage_chunk
+from soap_tpu_torch.pipeline import engine as engine_mod
 from soap_tpu_torch.pipeline.engine import HaloEngine
+from soap_tpu_torch.pipeline.membership import compute_membership
 from soap_tpu_torch.pipeline.run import (
     age_table, build_catalogue, entry_plan, make_context, mock_catalogue, mock_metadata,
 )
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
-from soap_tpu_torch.utils.mock_data import build_mock_universe
+from soap_tpu_torch.utils.mock_data import add_neutrinos, build_mock_universe
 from soap_tpu_torch.utils.parity import (
     catalogue_differences, is_loose, key_close, scaled_error,
 )
@@ -139,7 +164,11 @@ K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
 HYDRO_TIMED_PASSES = 3  # the hydro and COLIBRE paths', to fit the run's time limit
 GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
-FLAMINGO_CHUNKED_PASSES = 2  # the chunked FLAMINGO entry's, to fit the time limit
+FLAMINGO_CHUNKED_PASSES = 1  # the chunked FLAMINGO entry's, to fit the time limit
+NU_TIMED_PASSES = 1  # the FLAMINGO entry with neutrinos', to fit the time limit
+#: neutrinos per dark matter particle (FLAMINGO L1_m9: 1000^3 to 1800^3)
+NU_RATIO = 0.17
+NU_SEED = 6
 ENGINE_SEED = 11
 BENCH = dict(
     n_halos=2048, n_field=400000, boxsize=170.0, seed=20260816,
@@ -482,14 +511,15 @@ def _counters(stats):
                 by_pass=dict(sorted(stats.bucket_calls_by_pass.items())))
 
 
-def engine_case(where):
+def engine_case(where, tile_caps=None, enclose_scale=0.3):
     """Phase 5's run on one device: a 64-halo mock with two satellite
     subhalos of its biggest halo (they and every fourth halo satellites),
     coarse particles over a wide mass range (some halos past 1 Mpc),
     every third input radius shrunk x0.002 (floored at the pass's widest
-    aperture) and every catalogue EncloseRadius understated x0.3, so the
-    truncation misses bound rows of the biggest halos and the bound-count
-    cross-check sends them round the x1.5 retry ladder."""
+    aperture) and every catalogue EncloseRadius understated x0.3 (times
+    ``enclose_scale``), so the truncation misses bound rows of the biggest
+    halos and the bound-count cross-check sends them round the x1.5 retry
+    ladder."""
     uni = build_mock_universe(**ENGINE_MOCK)
     ctx, chunk, args, specs = _bench_inputs(uni, torch.device(where))
     H = len(uni.halo_renclose)
@@ -497,9 +527,9 @@ def engine_case(where):
     args["search_radius_phys"] = args["search_radius_phys"] * np.where(
         np.arange(H) % 3 == 0, 0.002, 1.0
     )
-    args["enclose_radius_phys"] = args["enclose_radius_phys"] * 0.3
+    args["enclose_radius_phys"] = args["enclose_radius_phys"] * enclose_scale
     rg.launches = il.launches = 0
-    eng = HaloEngine(ctx, chunk, specs, where)
+    eng = HaloEngine(ctx, chunk, specs, where, tile_caps=tile_caps)
     res = eng.process(**args)
     return uni, res, eng.stats, rg.launches, il.launches
 
@@ -522,24 +552,166 @@ def phase_engine(dev):
         f"scaled error {worst}); counters equal {c_gpu}; launches K1 {n1}, K2 {n2}")
 
 
-def hydro_engine_case(where, parameter_file=None):
+def hydro_engine_case(where, parameter_file=None, neutrinos=False, tile_caps=None,
+                      enclose_scale=0.3):
     """Phase 5h's run on one device: the CPU hydro test's mock (two
     satellites, they and every fourth halo satellites, every third input
     radius shrunk x0.002, EncloseRadius understated x0.3) with the
-    default hydro list, or a shipped parameter file's (phase 5p)."""
+    default hydro list, or a shipped parameter file's (phase 5p); with
+    ``neutrinos``, the mock gains a PartType6 population and the list
+    keeps its SO groups (phase 5n); ``enclose_scale`` replaces the x0.3
+    (phase 5c)."""
     uni = build_mock_universe(**HYDRO_SMALL)
+    if neutrinos:
+        uni = add_neutrinos(uni, NU_RATIO, NU_SEED)
     ctx, chunk, args, specs = _hydro_inputs(uni, torch.device(where), parameter_file)
+    if neutrinos:
+        specs = [s for s in specs if s.kind == "SO"]
     H = uni.n_halos
     args["is_central"] = (np.arange(H) % 4 != 0) & (np.asarray(uni.halo_rank) == 0)
     args["search_radius_phys"] = args["search_radius_phys"] * np.where(
         np.arange(H) % 3 == 0, 0.002, 1.0
     )
-    args["enclose_radius_phys"] = args["enclose_radius_phys"] * 0.3
+    args["enclose_radius_phys"] = args["enclose_radius_phys"] * enclose_scale
     rg.launches = il.launches = 0
     hs.k2_launches_by_config.clear()
-    eng = HaloEngine(ctx, chunk, specs, where)
+    eng = HaloEngine(ctx, chunk, specs, where, tile_caps=tile_caps)
     res = eng.process(**args)
     return uni, res, eng.stats, dict(hs.k2_launches_by_config)
+
+
+#: phase 5c's tile plans, as (rows, halos) per bucket: CAPACITY_ROW_FACTOR
+#: times the default row budget with the default halo cap (each round of
+#: these mocks in one bucket, padded to its largest halo's rows), and the
+#: default row budget with one halo per bucket (padded to its own rows)
+CAPACITY_ROW_FACTOR = 16
+#: phase 5c's runs: (name, engine case, its mock, keywords)
+CAPACITY_CASES = (
+    ("DMO list", "engine", ENGINE_MOCK, {}),
+    ("DMO list at the catalogue's EncloseRadius", "engine", ENGINE_MOCK,
+     {"enclose_scale": 1.0}),
+    ("hydro list", "hydro", HYDRO_SMALL, {}),
+    ("hydro list at the catalogue's EncloseRadius", "hydro", HYDRO_SMALL,
+     {"enclose_scale": 1.0}),
+)
+#: the groups and keys phase 5c allows to differ between the two plans,
+#: by run (a name ending in "/" stands for every key of its group), each
+#: named with its cause in PERF.md: phases 5 and 5h understate every
+#: EncloseRadius x0.3, and the engine decides per tile, from the largest
+#: EncloseRadius of its halos, whether a wide aperture copies the
+#: next-smaller one, so a halo whose bound particles reach past the copy
+#: source is copied in one plan and computed in the other (the JAX
+#: engine decides the same way); two SO/5xR500_crit iterative inertia
+#: tensors of the DMO run move with the plan too.  At the catalogue's
+#: EncloseRadius every key must be bit-equal.
+_WIDE_EXCLUSIVE = tuple(f"ExclusiveSphere/{r}kpc/" for r in (300, 500, 1000, 3000))
+CAPACITY_EXCEPTIONS = {
+    "DMO list": _WIDE_EXCLUSIVE + ("SO/5xR500_crit/DarkMatterInertiaTensor",
+                                   "SO/5xR500_crit/TotalInertiaTensor"),
+    "hydro list": _WIDE_EXCLUSIVE,
+}
+
+
+class CapacityLog:
+    """Each halo's largest padded row capacity per particle type over the
+    bucket calls of an engine run, read from the context every
+    ``_process_bucket`` call is given."""
+
+    def __init__(self):
+        self.cap = {}
+
+    def __enter__(self):
+        self._fn = engine_mod._process_bucket
+
+        def logged(ctx, *a, **kw):
+            for i in a[7].tolist():  # the bucket's catalogue indices
+                old = self.cap.get(i, (0,) * len(ctx.capacities))
+                self.cap[i] = tuple(max(x, y) for x, y in zip(old, ctx.capacities))
+            return self._fn(ctx, *a, **kw)
+
+        engine_mod._process_bucket = logged
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod._process_bucket = self._fn
+
+
+def bit_differences(a, b):
+    """The group/key names whose arrays are not bit-equal (dtype, shape
+    and bytes)."""
+    bad = []
+    for group in a:
+        for key in a[group]:
+            x, y = np.asarray(a[group][key]), np.asarray(b[group][key])
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                bad.append(f"{group}/{key}")
+    return bad
+
+
+def _allowed(key, names):
+    return any(key == n or (n.endswith("/") and key.startswith(n)) for n in names)
+
+
+def phase_capacity(dev):
+    """Phase 5c: each run of CAPACITY_CASES on the GPU under the two tile
+    plans: each halo's row capacity in the two, and every key bit-equal
+    but the run's named exceptions."""
+    for tag, kind, mock, kw in CAPACITY_CASES:
+        case, make_inputs = ((engine_case, _bench_inputs) if kind == "engine"
+                             else (hydro_engine_case, _hydro_inputs))
+        ctx, chunk, _, specs = make_inputs(build_mock_universe(**mock), dev)
+        budget = engine_mod.row_budget(chunk, specs, ctx)
+        plans = ((CAPACITY_ROW_FACTOR * budget, engine_mod.MAX_BATCH), (budget, 1))
+        runs = []
+        for tile_caps in plans:
+            with CapacityLog() as log:
+                uni, res, stats = case(dev, tile_caps=tile_caps, **kw)[:3]
+            torch.cuda.synchronize()
+            runs.append((res, stats, log.cap))
+        (ref, st_a, cap_a), (got, st_b, cap_b) = runs
+        # per halo, the particle type whose padding the plans changed most
+        ratio = np.array([max(x / y for x, y in zip(cap_a[i], cap_b[i]) if y)
+                          for i in cap_a if i in cap_b and i >= 0])
+        if ratio.size == 0 or ratio.max() <= 1.0:
+            raise AssertionError(f"capacity {tag}: the two plans padded every halo alike")
+        names = CAPACITY_EXCEPTIONS.get(tag, ())
+        bad = bit_differences(ref, got)
+        unexplained = [k for k in bad if not _allowed(k, names)]
+        n_keys = sum(len(d) for d in ref.values())
+        say("capacity", f"{tag}: {uni.n_halos} halos, {n_keys} keys; bucket calls "
+            f"{st_a.n_bucket_calls} (tile caps {plans[0]}) and {st_b.n_bucket_calls} "
+            f"({plans[1]}); each halo's largest row capacity of a particle type, first "
+            f"plan over second, for the type it moves most: min "
+            f"{ratio.min():.2f}, median {np.median(ratio):.2f}, max {ratio.max():.2f}, "
+            f"2x or more for {int((ratio >= 2).sum())} of {ratio.size} halos; keys not "
+            f"bit-equal: {len(bad)} {bad[:20]}; of them allowed by name "
+            f"{len(bad) - len(unexplained)} ({list(names)})")
+        if unexplained:
+            raise AssertionError(f"capacity {tag}: {len(unexplained)} keys depend on the "
+                                 f"bucket capacity: {unexplained[:20]}")
+
+
+def phase_neutrinos(dev):
+    """Phase 5n: phase 5h's mock with neutrinos and FLAMINGO's SO groups,
+    GPU against CPU, K1 launched for PartType6."""
+    uni, ref, st_c, _ = hydro_engine_case("cpu", "FLAMINGO", neutrinos=True)
+    _, got, st_g, _ = hydro_engine_case(dev, "FLAMINGO", neutrinos=True)
+    worst = _compare(ref, got)
+    c_cpu, c_gpu = _counters(st_c), _counters(st_g)
+    if c_cpu != c_gpu:
+        raise AssertionError(f"neutrinos: engine counters differ: CPU {c_cpu}, GPU {c_gpu}")
+    k1_by = dict(sorted(st_g.k1_launches_by_ptype.items()))
+    if k1_by.get("PartType6", 0) == 0:
+        raise AssertionError(f"neutrinos: K1 did not launch for PartType6: {k1_by}")
+    nu = uni.extra_ptypes["PartType6"]
+    so = got["SO/200_crit"]
+    n_raw_ne_weighted = int(np.sum(np.abs(so["Mnu"] - so["MnuNS"]) > 0))
+    say("neutrinos", f"{uni.n_halos} halos, {len(nu['Weights'])} neutrinos "
+        f"({float(np.mean(nu['Weights'] < 0)):.3f} of weights negative), {len(got)} SO "
+        f"groups, {sum(len(d) for d in got.values())} keys: GPU == CPU within tolerance "
+        f"(largest scaled error {worst}); counters equal {c_gpu}; K1 launches by type "
+        f"{k1_by}; SO/200_crit halos whose raw and weighted neutrino masses differ: "
+        f"{n_raw_ne_weighted}")
 
 
 def phase_engine_hydro(dev):
@@ -1140,6 +1312,100 @@ def phase_timings_chunked(dev):
     return dict(launches={"range_gather": n1, "inertia_loop": n2})
 
 
+def neutrino_oracle(nu, boxsize, a, centres, r_phys):
+    """(raw mass, weighted mass, count) per halo of the neutrinos within
+    the physical radius ``r_phys`` of each comoving centre, in float64."""
+    pos = np.asarray(nu["Coordinates"], np.float64)
+    m = np.asarray(nu["Masses"], np.float64)
+    mw = m * np.asarray(nu["Weights"], np.float64)
+    out = []
+    for c, r in zip(centres, r_phys):
+        d = pos - c
+        d -= boxsize * np.round(d / boxsize)
+        inside = np.sqrt((d * d).sum(1)) * a <= r
+        out.append((m[inside].sum(), mw[inside].sum(), int(inside.sum())))
+    return np.array(out)
+
+
+def phase_entry_neutrinos(dev, uni):
+    """Phase 15: the hydro path's universe with NU_RATIO neutrinos per dark
+    matter particle through the entry with FLAMINGO's list and context:
+    a warm, NU_TIMED_PASSES timed and a checked pass; K1 launched for
+    PartType6; the neutrino keys of the 16 most massive centrals against
+    a float64 oracle at utils/parity.py's tolerances."""
+    t0 = time.perf_counter()
+    uni = add_neutrinos(uni, NU_RATIO, NU_SEED)
+    nu = uni.extra_ptypes["PartType6"]
+    inputs = entry_inputs(uni, False, "FLAMINGO")
+    say("flamingo-nu-entry", f"{len(nu['Weights'])} neutrinos beside {len(uni.pos)} dark "
+        f"matter particles ({len(nu['Weights']) / len(uni.pos):.4f}); "
+        f"{float(np.mean(nu['Weights'] < 0)):.3f} of weights negative; inputs built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = drive_entry("flamingo-nu-entry", inputs, dev, NU_TIMED_PASSES)
+    k1_by = dict(sorted(run["out"].stats.k1_launches_by_ptype.items()))
+    if k1_by.get("PartType6", 0) == 0:
+        raise AssertionError(f"flamingo-nu-entry: K1 did not launch for PartType6: {k1_by}")
+    say("flamingo-nu-entry", check_neutrino_keys(run["out"], uni)
+        + f"; K1 launches by type {k1_by}")
+    return run
+
+
+def check_neutrino_keys(out, uni):
+    """The neutrino keys of an entry run's 16 most massive centrals
+    (SO/200_crit) against the float64 oracle; returns a line to print."""
+    nu = uni.extra_ptypes["PartType6"]
+    so = out.results["SO/200_crit"]
+    central = np.flatnonzero(out.halos.is_central & (so["r"] > 0))
+    top = central[np.argsort(-so["Mtot"][central], kind="stable")[:16]]
+    want = neutrino_oracle(nu, uni.boxsize, uni.a, out.halos.cofp[top], so["r"][top])
+    checks = {}
+    for j, key in enumerate(("Mnu", "MnuNS", "Nnu")):
+        got = np.asarray(so[key][top])
+        if key == "Nnu":
+            ok = np.array_equal(got.astype(np.int64), want[:, j].astype(np.int64))
+        else:
+            ok = key_close(want[:, j], got, key)
+        checks[key] = float(f"{scaled_error(want[:, j], got):.3e}")
+        if not ok:
+            raise AssertionError(f"flamingo-nu-entry SO/200_crit/{key} differs from the "
+                                 f"float64 oracle: {got.tolist()} against {want[:, j].tolist()}")
+    return (f"16 most massive centrals: RawNeutrinoMass, NoiseSuppressedNeutrinoMass and "
+            f"NumberOfNeutrinoParticles (SO/200_crit) equal the float64 oracle (scaled "
+            f"errors {checks}); neutrinos inside {want[:, 2].astype(int).tolist()}; weighted "
+            f"over raw {[round(float(x), 4) for x in want[:, 1] / np.maximum(want[:, 0], 1e-30)]}")
+
+
+def phase_membership(uni):
+    """Phase 16: ``compute_membership`` on the main universe's IDs in its
+    snapshot order (``chunks.mock_fields``'s) against its bound lists:
+    GroupNr_bound equal to mock_fields', Rank_bound to each particle's
+    place in its bound list, on the card's host (numpy only)."""
+    order = chunks._snapshot_order(np.asarray(uni.pos), uni.boxsize)
+    snap_ids = np.asarray(uni.ids)[order]
+    meta = mock_metadata(uni)
+    specs = [s for s in build_specs(None, True, meta.virBN98) if s.kind == "bound"]
+    host = mock_fields(uni, specs, meta, ["PartType1"])
+    want_grnr = host["PartType1"][1]["GroupNr_bound"]
+    lengths = np.array([len(ids) for ids in uni.bound_ids])
+    ids_bound = np.concatenate(uni.bound_ids)
+    grnr_bound = np.repeat(np.arange(uni.n_halos, dtype=np.int64), lengths)
+    rank_bound = (np.arange(len(ids_bound)) - np.repeat(np.cumsum(lengths) - lengths,
+                                                        lengths)).astype(np.int32)
+    id_rank = np.full(int(snap_ids.max()) + 1, -1, np.int32)
+    id_rank[ids_bound.astype(np.int64)] = rank_bound
+    t0 = time.perf_counter()
+    grnr, rank = compute_membership(snap_ids, ids_bound, grnr_bound, rank_bound)
+    dt = time.perf_counter() - t0
+    if not np.array_equal(grnr, want_grnr):
+        raise AssertionError("membership: GroupNr_bound differs from the mock's labels")
+    if not np.array_equal(rank, id_rank[snap_ids.astype(np.int64)]):
+        raise AssertionError("membership: Rank_bound differs from the bound lists' order")
+    say("membership", f"{len(snap_ids)} snapshot IDs against {len(ids_bound)} bound IDs of "
+        f"{uni.n_halos} halos in {dt:.3f} s on the host ({len(snap_ids) / dt:.0f} IDs/s): "
+        f"GroupNr_bound and Rank_bound equal the mock's labels ({int((grnr >= 0).sum())} "
+        f"bound); h5py loaded: {'h5py' in sys.modules}")
+
+
 def phase_profile(dev, tag, inputs):
     """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
@@ -1187,6 +1453,8 @@ def main():
     k2 = phase_k2(dev)
     phase_engine(dev)
     phase_engine_hydro(dev)
+    phase_capacity(dev)
+    phase_neutrinos(dev)
     phase_engine_params(dev)
     phase_entry(dev)
     main_run, main_uni = phase_main(dev)
@@ -1202,6 +1470,8 @@ def main():
     flamingo_chunked_run = phase_entry_chunked("flamingo-entry-chunked", dev,
                                                flamingo_entry_run, FLAMINGO_CHUNKED_PASSES,
                                                serial_pass=False)
+    nu_entry_run = phase_entry_neutrinos(dev, hydro_uni)
+    phase_membership(main_uni)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
@@ -1212,8 +1482,8 @@ def main():
     # colibre_every_key_path_launches, main_entry_path_launches,
     # flamingo_entry_path_launches, main_entry_chunked_path_launches,
     # flamingo_entry_chunked_path_launches (one timed pass over all
-    # chunks) and timings_chunked_path_launches (phase 13t's GPU run):
-    # those paths';
+    # chunks), timings_chunked_path_launches (phase 13t's GPU run) and
+    # flamingo_nu_entry_path_launches (phase 15): those paths';
     # path_checks: each path's checked
     # pass (calls, max abs err against the plain version, the shapes it
     # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
@@ -1223,7 +1493,8 @@ def main():
             "colibre": colibre_run, "colibre-every-key": every_key_run,
             "main-entry": main_entry_run, "flamingo-entry": flamingo_entry_run,
             "main-entry-chunked": main_chunked_run,
-            "flamingo-entry-chunked": flamingo_chunked_run}
+            "flamingo-entry-chunked": flamingo_chunked_run,
+            "flamingo-nu-entry": nu_entry_run}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -1247,6 +1518,7 @@ def main():
                     main_entry_chunked_path_launches=main_chunked_run["launches"][name],
                     flamingo_entry_chunked_path_launches=flamingo_chunked_run["launches"][name],
                     timings_chunked_path_launches=timings_run["launches"][name],
+                    flamingo_nu_entry_path_launches=nu_entry_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

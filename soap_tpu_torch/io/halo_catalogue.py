@@ -7,9 +7,10 @@ The port's copy of ``soap_tpu/io/halo_catalogue.py``'s
 Mpc/h comoving and masses in Msun/h converted to the snapshot's Mpc and
 1e10 Msun, orphans (``Nbound == 0``) dropped, search radius 1.01 x
 ``REncloseComoving``, and TrackId / HostHaloId / Depth / peak-mass
-passthrough columns.  The reader imports ``h5py`` inside the functions
-that open files, so importing this module loads no h5py.  The other
-finders' readers are not ported.
+passthrough columns; and ``read_hbtplus_groupnr``, the bound-particle
+lists the membership program joins on.  The readers import ``h5py``
+inside the functions that open files, so importing this module loads no
+h5py.  The other finders' readers are not ported.
 """
 
 from __future__ import annotations
@@ -108,6 +109,48 @@ def _expand_vlen(vlen: np.ndarray, dtype) -> Tuple[np.ndarray, np.ndarray]:
     return flat, lengths
 
 
+def read_hbtplus_groupnr(basename: str, read_potential_energies: bool = False):
+    """(nr_halos, ids_bound, grnr_bound, rank_bound[, potentials]) for the
+    membership program.  Group numbers are the subhalo's row across all
+    files; rank is the position in its bound list (0 = most bound).
+    Both the unsorted multi-file and the sorted single-file layouts are
+    read, vlen datasets whole; potential energies come back in
+    (km/s)^2."""
+    import h5py
+
+    layout, filenames = _hbt_layout(basename)
+    if layout == "sorted":
+        with h5py.File(filenames[0], "r") as f:
+            ids = np.asarray(f["Particles/ParticleIDs"], dtype=np.uint64)
+            lengths = np.asarray(f["Subhalos/Nbound"], dtype=np.int64)
+            pots = (
+                np.asarray(f["Particles/PotentialEnergies"], dtype=np.float64)
+                if read_potential_energies and "PotentialEnergies" in f["Particles"]
+                else None
+            )
+    else:
+        ids_list, len_list, pot_list = [], [], []
+        for fname in filenames:
+            with h5py.File(fname, "r") as f:
+                flat, lengths_f = _expand_vlen(f["SubhaloParticles"][...], np.uint64)
+                ids_list.append(flat)
+                len_list.append(lengths_f)
+                if read_potential_energies and "PotentialEnergies" in f:
+                    pot_list.append(_expand_vlen(f["PotentialEnergies"][...], np.float64)[0])
+        ids = np.concatenate(ids_list) if ids_list else np.zeros(0, np.uint64)
+        lengths = np.concatenate(len_list) if len_list else np.zeros(0, np.int64)
+        pots = np.concatenate(pot_list) if pot_list else None
+    n = len(lengths)
+    grnr = np.repeat(np.arange(n, dtype=np.int64), lengths)
+    ends = np.cumsum(lengths)
+    rank = (np.arange(len(ids)) - np.repeat(ends - lengths, lengths)).astype(np.int32)
+    out = (n, ids, grnr, rank)
+    if read_potential_energies:
+        vel = _hbt_units(basename)[2]
+        out = out + ((pots * vel**2) if pots is not None else None,)
+    return out
+
+
 def hbtplus_catalogue(
     subs: Dict[str, np.ndarray],
     h: float,
@@ -185,3 +228,9 @@ def read_hbtplus_catalogue(
         packed = np.concatenate(rows)
         subs = {name: packed[name] for name in packed.dtype.names}
     return hbtplus_catalogue(subs, h, length_unit, mass_unit, keep_orphans)
+
+
+#: the membership program's readers by finder: (nr_halos, ids_bound,
+#: grnr_bound[, rank_bound[, potentials]]); the other finders are not
+#: ported
+GROUPNR_READERS = {"HBTplus": read_hbtplus_groupnr}

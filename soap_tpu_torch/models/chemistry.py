@@ -20,6 +20,7 @@ import torch
 
 from soap_tpu_torch.models.lazy import lazy_property as _lazy
 from soap_tpu_torch.ops import radii as radii_ops
+from soap_tpu_torch.ops.reductions import masked_sum
 
 
 class ChemistryMixin:
@@ -48,7 +49,7 @@ class ChemistryMixin:
         if values is None:
             return self._zeros()
         mask = self._gas_sel if extra_mask is None else self._gas_sel & extra_mask
-        return torch.where(mask, values, 0.0).sum(1)
+        return masked_sum(values, mask)
 
     # ---- hydrogen / helium / species masses ----
 
@@ -429,7 +430,7 @@ class ChemistryMixin:
         if values is None:
             return self._zeros()
         mask = self._star_sel if extra_mask is None else self._star_sel & extra_mask
-        return torch.where(mask, values, 0.0).sum(1)
+        return masked_sum(values, mask)
 
     def _per_star_mass(self, num):
         return torch.where(self.Mstar > 0, num / torch.clamp(self.Mstar, min=1e-37), 0.0)

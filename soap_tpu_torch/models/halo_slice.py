@@ -372,12 +372,19 @@ class HaloSlice(ChemistryMixin):
 
     @lazy_property
     def Mnu(self):
-        """Neutrino particle mass in the selection (0 without PartType6)."""
+        """Raw (unweighted) neutrino particle mass in the selection (0
+        without PartType6): with delta-f weights the concatenated masses
+        carry them, so the raw masses come from the per-type field."""
+        if self._has("PartType6/Masses"):
+            return red.masked_sum(
+                self.field("PartType6/Masses"), self._seg_arr(self.mask_nu, "PartType6")
+            )
         return red.masked_sum(self.parts.mass, self.mask_nu)
 
     @lazy_property
     def MnuNS(self):
-        """Noise-suppressed neutrino mass (the weighted masses)."""
+        """Noise-suppressed neutrino mass: the sum of the weighted masses
+        (the concatenated masses carry the weights)."""
         return red.masked_sum(self.parts.mass, self.mask_nu)
 
     @lazy_property
@@ -726,14 +733,14 @@ class HaloSlice(ChemistryMixin):
     def SFR(self):
         if not self._has("PartType0/StarFormationRates"):
             return self._zeros()
-        return torch.where(self._gas_sel, self._gas_sfr, 0.0).sum(1)
+        return red.masked_sum(self._gas_sfr, self._gas_sel)
 
     @lazy_property
     def Mgas_SF(self):
         if not self._has("PartType0/StarFormationRates"):
             return self._zeros()
         sf = self._gas_sel & (self._gas_sfr > 0.0)
-        return torch.where(sf, self._gas_mass, 0.0).sum(1)
+        return red.masked_sum(self._gas_mass, sf)
 
     @lazy_property
     def _gas_metal_mass(self):
@@ -743,7 +750,7 @@ class HaloSlice(ChemistryMixin):
     def gasmetalfrac(self):
         if not self._has("PartType0/MetalMassFractions"):
             return self._zeros()
-        mm = torch.where(self._gas_sel, self._gas_metal_mass, 0.0).sum(1)
+        mm = red.masked_sum(self._gas_metal_mass, self._gas_sel)
         return torch.where(self.Mgas > 0, mm / torch.clamp(self.Mgas, min=1e-37), 0.0)
 
     @lazy_property
@@ -754,7 +761,7 @@ class HaloSlice(ChemistryMixin):
         ):
             return self._zeros()
         sf = self._gas_sel & (self._gas_sfr > 0.0)
-        mm = torch.where(sf, self._gas_metal_mass, 0.0).sum(1)
+        mm = red.masked_sum(self._gas_metal_mass, sf)
         return torch.where(self.Mgas_SF > 0, mm / torch.clamp(self.Mgas_SF, min=1e-37), 0.0)
 
     #: hot/cool boundary (K)
@@ -769,13 +776,13 @@ class HaloSlice(ChemistryMixin):
         if not self._has("PartType0/Temperatures"):
             return self._zeros()
         m = torch.where(self._gas_sel, self._gas_mass, 0.0)
-        return (m * self._gas_temp).sum(1) / torch.clamp(self.Mgas, min=1e-37)
+        return red.particle_sum(m * self._gas_temp) / torch.clamp(self.Mgas, min=1e-37)
 
     def _masked_mw_temperature(self, extra_mask):
         m = torch.where(self._gas_sel & extra_mask, self._gas_mass, 0.0)
-        mtot = m.sum(1)
+        mtot = red.particle_sum(m)
         return torch.where(
-            mtot > 0, (m * self._gas_temp).sum(1) / torch.clamp(mtot, min=1e-37), 0.0
+            mtot > 0, red.particle_sum(m * self._gas_temp) / torch.clamp(mtot, min=1e-37), 0.0
         )
 
     @lazy_property
@@ -790,14 +797,14 @@ class HaloSlice(ChemistryMixin):
         if not self._has("PartType0/Temperatures"):
             return self._zeros()
         hot = self._gas_sel & (self._gas_temp >= self.T_COOL_MAX)
-        return torch.where(hot, self._gas_mass, 0.0).sum(1)
+        return red.masked_sum(self._gas_mass, hot)
 
     # ---- kinetic energies (about vcom, with the Hubble flow) ----
 
     def _kinetic_energy(self, mask):
         v = self.parts.vel - self.vcom[:, None, :] + self.parts.pos * self.ctx.H
         m = torch.where(mask, self.parts.mass, 0.0)
-        return 0.5 * (m * (v * v).sum(-1)).sum(1)
+        return 0.5 * red.particle_sum(m * (v * v).sum(-1))
 
     @lazy_property
     def KineticEnergyTotal(self):
@@ -878,15 +885,15 @@ class HaloSlice(ChemistryMixin):
     def Mstar_init(self):
         if not self._has("PartType4/InitialMasses"):
             return self._zeros()
-        return torch.where(self._star_sel, self.field("PartType4/InitialMasses"), 0.0).sum(1)
+        return red.masked_sum(self.field("PartType4/InitialMasses"), self._star_sel)
 
     @lazy_property
     def starmetalfrac(self):
         if not self._has("PartType4/MetalMassFractions"):
             return self._zeros()
-        mm = torch.where(
-            self._star_sel, self._star_mass * self.field("PartType4/MetalMassFractions"), 0.0
-        ).sum(1)
+        mm = red.masked_sum(
+            self._star_mass * self.field("PartType4/MetalMassFractions"), self._star_sel
+        )
         return torch.where(self.Mstar > 0, mm / torch.clamp(self.Mstar, min=1e-37), 0.0)
 
     @lazy_property
@@ -903,7 +910,7 @@ class HaloSlice(ChemistryMixin):
     def StellarLuminosity(self):
         if not self._has("PartType4/Luminosities"):
             return self._zeros(N_BANDS)
-        return self._star_lum_sel.sum(1)
+        return red.particle_sum(self._star_lum_sel)
 
     @lazy_property
     def HalfLightRadiusStar(self):
@@ -916,7 +923,7 @@ class HaloSlice(ChemistryMixin):
         out = []
         for band in range(N_BANDS):
             w = lum_s[..., band]
-            total = torch.where(sel_s, w, 0.0).sum(1)
+            total = red.masked_sum(w, sel_s)
             out.append(radii_ops.half_weight_radius_sorted(r_s, w, sel_s, total))
         return torch.stack(out, 1)
 
@@ -942,7 +949,7 @@ class HaloSlice(ChemistryMixin):
         m = torch.where(self._star_sel, self._star_mass, 0.0)
         return torch.where(
             self.Mstar > 0,
-            (m * self._stellar_ages).sum(1) / torch.clamp(self.Mstar, min=1e-37),
+            red.particle_sum(m * self._stellar_ages) / torch.clamp(self.Mstar, min=1e-37),
             0.0,
         )
 
@@ -952,9 +959,9 @@ class HaloSlice(ChemistryMixin):
         if not (self._has("PartType4/StellarAges") and self._has("PartType4/Luminosities")):
             return self._zeros()
         Lr = self._star_lum_sel[..., GAMA_R_BAND]
-        Ltot = Lr.sum(1)
+        Ltot = red.particle_sum(Lr)
         return torch.where(
-            Ltot > 0, (Lr * self._stellar_ages).sum(1) / torch.clamp(Ltot, min=1e-37), 0.0
+            Ltot > 0, red.particle_sum(Lr * self._stellar_ages) / torch.clamp(Ltot, min=1e-37), 0.0
         )
 
     # ---- stellar cylindrical kinematics ----
@@ -1013,8 +1020,9 @@ class HaloSlice(ChemistryMixin):
     def _star_vlum_coms(self):
         """(B, 9, 3) luminosity-weighted mean velocities per band."""
         w = self._star_lum_sel  # (B, K4, 9)
-        wsum = torch.clamp(w.sum(1), min=1e-37)
-        return torch.einsum("bkn,bkd->bnd", w, self._star_vel_local) / wsum[..., None]
+        wsum = torch.clamp(red.particle_sum(w), min=1e-37)
+        wv = w[..., None] * self._star_vel_local[:, :, None, :]  # (B, K4, 9, 3)
+        return red.particle_sum(wv) / wsum[..., None]
 
     def _star_vel_band(self, b):
         return self._star_vel_local - self._star_vlum_coms[:, b, None, :]
@@ -1111,7 +1119,7 @@ class HaloSlice(ChemistryMixin):
         """(B, 9) 1 - 2 x (counter-rotating band luminosity) / (total)."""
         if not self._has("PartType4/Luminosities"):
             return self._zeros(N_BANDS)
-        Ltot = self._star_lum_sel.sum(1)
+        Ltot = red.particle_sum(self._star_lum_sel)
         m_counter = torch.stack([r.m_counterrot for r in self._kappa_star_lw_bands], 1)
         return torch.where(
             Ltot > 0, 1.0 - 2.0 * m_counter / torch.clamp(Ltot, min=1e-37), 0.0
@@ -1132,7 +1140,7 @@ class HaloSlice(ChemistryMixin):
                 * torch.linalg.cross(self._star_pos_local, self._star_vel_band(b), dim=-1)
                 * Ldir[:, None, :]
             ).sum(-1)
-            m_counter = torch.where(self._star_sel & (Li < 0.0), self._star_mass, 0.0).sum(1)
+            m_counter = red.masked_sum(self._star_mass, self._star_sel & (Li < 0.0))
             vals.append(torch.where(
                 self.Mstar > 0, 1.0 - 2.0 * m_counter / torch.clamp(self.Mstar, min=1e-37), 0.0
             ))
@@ -1148,7 +1156,7 @@ class HaloSlice(ChemistryMixin):
     def Mbh_subgrid(self):
         if not self._has("PartType5/SubgridMasses"):
             return self._zeros()
-        return torch.where(self._bh_sel, self.field("PartType5/SubgridMasses"), 0.0).sum(1)
+        return red.masked_sum(self.field("PartType5/SubgridMasses"), self._bh_sel)
 
     @lazy_property
     def _bh_max_idx(self):
@@ -1210,7 +1218,7 @@ class HaloSlice(ChemistryMixin):
     def _bh_sum(self, name):
         if not self._has(name):
             return self._zeros()
-        return torch.where(self._bh_sel, self.field(name), 0.0).sum(1)
+        return red.masked_sum(self.field(name), self._bh_sel)
 
     @lazy_property
     def BlackHolesTotalInjectedThermalEnergy(self):
@@ -1256,7 +1264,7 @@ class HaloSlice(ChemistryMixin):
         if not self._has("PartType0/AveragedStarFormationRates"):
             return self._zeros(2)
         avg = self.field("PartType0/AveragedStarFormationRates")
-        return torch.where(self._gas_sel[..., None], avg, 0.0).sum(1)
+        return red.masked_sum(avg, self._gas_sel)
 
     # ---- dust ----
 
@@ -1268,7 +1276,7 @@ class HaloSlice(ChemistryMixin):
     def DustMass(self):
         if not self._has("PartType0/TotalDustMassFractions"):
             return self._zeros()
-        return torch.where(self._gas_sel, self._gas_dust_mass, 0.0).sum(1)
+        return red.masked_sum(self._gas_dust_mass, self._gas_sel)
 
     @lazy_property
     def HalfMassRadiusDust(self):
@@ -1289,7 +1297,7 @@ class HaloSlice(ChemistryMixin):
         u = self.field("PartType0/Pressures") / (
             (5.0 / 3.0 - 1.0) * torch.clamp(self.field("PartType0/Densities"), min=1e-37)
         )
-        return torch.where(self._gas_sel, self._gas_mass * u, 0.0).sum(1)
+        return red.masked_sum(self._gas_mass * u, self._gas_sel)
 
     @lazy_property
     def PotentialEnergyTotal(self):
@@ -1307,7 +1315,7 @@ class HaloSlice(ChemistryMixin):
                 self.field(mass_name) if mass_name and self._has(mass_name)
                 else self._seg_arr(self.parts.mass, ptype)
             )
-            total = total + 0.5 * torch.where(sel, m * self.field(key), 0.0).sum(1)
+            total = total + 0.5 * red.masked_sum(m * self.field(key), sel)
         return total
 
     # ---- stellar birth statistics (median / min / max) ----
@@ -1402,7 +1410,7 @@ class HaloSlice(ChemistryMixin):
         if not self._has(name):
             return self._zeros(bands)
         mask = self._gas_sel if extra_mask is None else self._gas_sel & extra_mask
-        return torch.where(mask[..., None], self.field(name), 0.0).sum(1)
+        return red.masked_sum(self.field(name), mask)
 
     @lazy_property
     def Xraylum(self):
@@ -1446,7 +1454,7 @@ class HaloSlice(ChemistryMixin):
         if not self._has("PartType0/ComptonYParameters"):
             return self._zeros()
         mask = self._gas_sel if extra_mask is None else self._gas_sel & extra_mask
-        return torch.where(mask, self.field("PartType0/ComptonYParameters"), 0.0).sum(1)
+        return red.masked_sum(self.field("PartType0/ComptonYParameters"), mask)
 
     @lazy_property
     def compY(self):
@@ -1464,9 +1472,9 @@ class HaloSlice(ChemistryMixin):
             return self._zeros()
         mask = self._gas_sel if extra_mask is None else self._gas_sel & extra_mask
         y = torch.where(mask, self.field("PartType0/ComptonYParameters"), 0.0)
-        ysum = y.sum(1)
+        ysum = red.particle_sum(y)
         return torch.where(
-            ysum > 0, (y * self._gas_temp).sum(1) / torch.clamp(ysum, min=1e-37), 0.0
+            ysum > 0, red.particle_sum(y * self._gas_temp) / torch.clamp(ysum, min=1e-37), 0.0
         )
 
     @lazy_property
@@ -1489,8 +1497,8 @@ class HaloSlice(ChemistryMixin):
             mask = mask & extra_mask
         rho_m = self.field("PartType0/Densities") * self._gas_mass
         T = torch.clamp(self._gas_temp, min=1e-30)
-        num = torch.where(mask, rho_m * T**0.25, 0.0).sum(1)
-        den = torch.where(mask, rho_m * T**-0.75, 0.0).sum(1)
+        num = red.masked_sum(rho_m * T**0.25, mask)
+        den = red.masked_sum(rho_m * T**-0.75, mask)
         return torch.where(den > 0, num / torch.clamp(den, min=1e-37), 0.0)
 
     @lazy_property
@@ -1733,12 +1741,12 @@ class SOSlice(HaloSlice):
                 fr = weights * (v_r**2 + (5.0 / 3.0 - 1.0) * self._u_full)
             else:
                 raise ValueError(flow_type)
-            inflow = torch.where(in_shell & (v_r < 0), fr, 0.0).sum(1) / dR
-            outflow = torch.where(in_shell & (v_r > 0), fr, 0.0).sum(1) / dR
+            inflow = red.masked_sum(fr, in_shell & (v_r < 0)) / dR
+            outflow = red.masked_sum(fr, in_shell & (v_r > 0)) / dR
             fast = None
             if fast_outflows:
                 fast_m = in_shell & (v_r > 0.25 * self.Vmax_soft[:, None])
-                fast = torch.where(fast_m, fr, 0.0).sum(1) / dR
+                fast = red.masked_sum(fr, fast_m) / dR
             shells.append((inflow, outflow, fast))
         flat = [s[0] for s in shells] + [s[1] for s in shells]
         if fast_outflows:
@@ -1810,7 +1818,7 @@ class SOSlice(HaloSlice):
         sel = self.selection
         r = self.r
         nu = self.ctx.nu_density
-        R1 = torch.where(sel, self.parts.mass * torch.where(sel, radius_arr, 0.0), 0.0).sum(1)
+        R1 = red.masked_sum(self.parts.mass * torch.where(sel, radius_arr, 0.0), sel)
         missed = self.SO_mass - red.masked_sum(self.parts.mass, sel)
         R1 = R1 + math.pi * nu * r**4
         missed = missed - nu * (4.0 / 3.0) * math.pi * r**3
@@ -1848,7 +1856,7 @@ class SOSlice(HaloSlice):
 
     def _concentration_dmo(self, radius_arr):
         """DM-only R1 concentration with the missed-mass correction."""
-        R1 = torch.where(self.mask_dm, self.parts.mass * radius_arr, 0.0).sum(1)
+        R1 = red.masked_sum(self.parts.mass * radius_arr, self.mask_dm)
         R1 = R1 + self._dm_missed_mass * self.r
         denom = self.r * (self.Mdm + self._dm_missed_mass)
         R1 = R1 / torch.clamp(denom, min=1e-37)
@@ -1901,9 +1909,9 @@ class SOSlice(HaloSlice):
         volumes = self._gas_mass / torch.clamp(self.field("PartType0/Densities"), min=1e-37)
         area = math.pi * torch.clamp(self.r, min=1e-37) ** 2
         sigma_t_over_c = 6.6524587158e-29 / (3.0856775815e22**2) / 2.99792458e5
-        total = torch.where(sel, ne * vr * volumes, 0.0).to(torch.float64).sum(1) / area.to(
-            torch.float64
-        )
+        total = red.particle_sum(
+            torch.where(sel, ne * vr * volumes, 0.0).to(torch.float64)
+        ) / area.to(torch.float64)
         return torch.where(self.exists, sigma_t_over_c * total, 0.0).to(torch.float32)
 
     # -- satellite-excluded and core-excised X-ray luminosities and
@@ -2147,8 +2155,8 @@ class ProjectedApertureSlice(HaloSlice):
         """1D velocity dispersion along the projection axis."""
         dv = self.parts.vel[..., self.axis] - vcom_species[:, self.axis, None]
         m = torch.where(mask, self.parts.mass, 0.0)
-        mtot = m.sum(1)
-        var = (m * dv * dv).sum(1) / torch.clamp(mtot, min=1e-37)
+        mtot = red.particle_sum(m)
+        var = red.particle_sum(m * dv * dv) / torch.clamp(mtot, min=1e-37)
         return torch.where(mtot > 0, torch.sqrt(var), 0.0)
 
     @lazy_property

@@ -14,7 +14,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from soap_tpu_torch.ops.reductions import particle_sum, prefix_sum
+from soap_tpu_torch.ops.reductions import masked_sum, particle_mean, particle_sum, prefix_sum
 
 
 def angular_momentum(
@@ -26,7 +26,7 @@ def angular_momentum(
     """Mass-weighted angular momentum (B, 3) of the selected particles."""
     m = torch.where(mask, mass, 0.0)
     L = m[..., None] * torch.linalg.cross(pos, vel, dim=-1)
-    return torch.where(mask[..., None], L, 0.0).sum(1)
+    return masked_sum(L, mask)
 
 
 class VmaxResult(NamedTuple):
@@ -127,10 +127,10 @@ def angular_momentum_and_kappa(
     excluded (reference ``kinematic_properties.py:266-425``)."""
     m = torch.where(mask, mass, 0.0)
     Lpart = m[..., None] * torch.linalg.cross(pos, vel, dim=-1)
-    Ltot = particle_sum(torch.where(mask[..., None], Lpart, 0.0))
+    Ltot = masked_sum(Lpart, mask)
     Lnrm = torch.sqrt((Ltot * Ltot).sum(1))
     vx, vy, vz = vel[..., 0], vel[..., 1], vel[..., 2]
-    K = 0.5 * (m * (vx * vx + vy * vy + vz * vz)).sum(1)
+    K = 0.5 * particle_sum(m * (vx * vx + vy * vy + vz * vz))
     Ldir = Ltot / torch.clamp(Lnrm, min=1e-37)[:, None]
     Li = (
         Lpart[..., 0] * Ldir[:, None, 0]
@@ -144,12 +144,12 @@ def angular_momentum_and_kappa(
     on_axis = Ri2 == 0.0
     Krot = 0.5 * Li * Li / (torch.clamp(mass, min=1e-37) * torch.where(on_axis, 1.0, Ri2))
     corot = mask & ~on_axis & (Li > 0.0)
-    Kcorot = torch.where(corot, Krot, 0.0).sum(1)
+    Kcorot = masked_sum(Krot, corot)
     kappa = torch.where(
         (Lnrm > 0.0) & (K > 0.0), Kcorot / torch.clamp(K, min=1e-37), 0.0
     )
     counter = mask & (Li < 0.0)
-    m_counter = torch.where(Lnrm > 0.0, torch.where(counter, mass, 0.0).sum(1), 0.0)
+    m_counter = torch.where(Lnrm > 0.0, masked_sum(mass, counter), 0.0)
     return AngularMomentumResult(Ltot, kappa, m_counter)
 
 
@@ -171,13 +171,20 @@ def cylindrical_velocities(
     x = x / torch.sqrt(torch.clamp((x * x).sum(1), min=1e-37))[:, None]
     y = torch.linalg.cross(z, x, dim=-1)
     R = torch.stack([x, y, z], 1)  # (B, 3, 3): rows are the new axes
-    pr = torch.einsum("bkd,bnd->bkn", pos, R)
-    vr3 = torch.einsum("bkd,bnd->bkn", vel, R)
+    pr, vr3 = _rotate(pos, R), _rotate(vel, R)
     phi = torch.atan2(pr[..., 1], pr[..., 0])
     c, s = torch.cos(phi), torch.sin(phi)
     v_r = vr3[..., 0] * c + vr3[..., 1] * s
     v_phi = -vr3[..., 0] * s + vr3[..., 1] * c
     return torch.stack([v_r, v_phi, vr3[..., 2]], -1)
+
+
+def _rotate(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """(B, K, 3) ``x`` in the frame whose axes are ``R``'s rows: three
+    elementwise products and sums in a fixed order, so a particle's
+    result does not depend on the batched product a bucket's shape
+    would pick."""
+    return sum(x[..., d, None] * R[:, None, :, d] for d in range(3))
 
 
 def weighted_cylindrical_dispersion(
@@ -188,9 +195,9 @@ def weighted_cylindrical_dispersion(
     """[sigma_r, sigma_phi, sigma_z] (B, 3) about the weighted mean
     (reference ``kinematic_properties.py:130-219``)."""
     w = torch.where(mask, weights, 0.0)
-    wn = w / torch.clamp(w.sum(1), min=1e-37)[:, None]
-    mean = (wn[..., None] * v_cyl).sum(1)
-    var = (wn[..., None] * (v_cyl - mean[:, None, :]) ** 2).sum(1)
+    wn = w / torch.clamp(particle_sum(w), min=1e-37)[:, None]
+    mean = particle_sum(wn[..., None] * v_cyl)
+    var = particle_sum(wn[..., None] * (v_cyl - mean[:, None, :]) ** 2)
     return torch.sqrt(var)
 
 
@@ -200,7 +207,7 @@ def weighted_rotation_velocity(
     """Weight-averaged azimuthal velocity (B,) (reference
     ``kinematic_properties.py:35-51``)."""
     w = torch.where(mask, weights, 0.0)
-    return (w * v_phi).sum(1) / torch.clamp(w.sum(1), min=1e-37)
+    return particle_mean(w, v_phi, particle_sum(w))
 
 
 def spin_parameter(

@@ -22,21 +22,33 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 1, dtype=torch.float64).to(x.dtype)
 
 
-def particle_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the particle axis (dim 1), accumulated in float64 and
-    rounded back to ``x``'s dtype.  PyTorch's CUDA float32 sum
-    associates by the reduced length, so a halo's centre-of-mass
-    velocity and angular momentum, and with them which particles count
-    as co-rotating, would depend on the capacity of the bucket it shares
-    with other halos."""
-    return x.sum(1, dtype=torch.float64).to(x.dtype)
+def particle_sum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Sum over the particle axis ``dim``, accumulated in float64 and
+    rounded back to ``x``'s dtype: every float reduction over particles
+    in the property DAG goes through here.  PyTorch's CUDA float32 sum
+    associates by the reduced length, so a halo's sums (and through its
+    centre-of-mass velocity and angular momentum, which particles count
+    as co-rotating or sit inside a shell) would depend on the capacity
+    of the bucket it shares with other halos.  Integer sums are exact
+    and stay as they are."""
+    if not x.dtype.is_floating_point:
+        return x.sum(dim)
+    return x.sum(dim, dtype=torch.float64).to(x.dtype)
+
+
+def particle_mean(w: torch.Tensor, x: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+    """``w``-weighted sum of ``x`` over the particle axis over ``wsum``
+    (clamped at 1e-37); ``w`` is (B, K) and ``x`` (B, K) or (B, K, D)."""
+    if x.dim() > w.dim():
+        w, wsum = w[..., None], wsum[..., None]
+    return particle_sum(w * x) / torch.clamp(wsum, min=1e-37)
 
 
 def masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Sum of x over the selected particles; x is (B, K) or (B, K, D)."""
     if x.dim() > mask.dim():
         mask = mask[..., None]
-    return torch.where(mask, x, 0).sum(1)
+    return particle_sum(torch.where(mask, x, 0))
 
 
 def masked_count(mask: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
@@ -50,8 +62,8 @@ def centre_of_mass(
     """(total mass (B,), centre of mass (B, 3)) over the selected
     particles, with halo-relative ``pos``."""
     m = torch.where(mask, mass, 0.0)
-    mtot = m.sum(1)
-    com = (m[..., None] * pos).sum(1) / torch.clamp(mtot, min=1e-37)[:, None]
+    mtot = particle_sum(m)
+    com = particle_mean(m, pos, mtot)
     return mtot, torch.where(mtot[:, None] > 0, com, 0.0)
 
 
@@ -61,7 +73,7 @@ def centre_of_mass_velocity(
     """Mass-weighted mean velocity (B, 3) of the selected particles."""
     m = torch.where(mask, mass, 0.0)
     mtot = particle_sum(m)
-    v = particle_sum(m[..., None] * vel) / torch.clamp(mtot, min=1e-37)[:, None]
+    v = particle_mean(m, vel, mtot)
     return torch.where(mtot[:, None] > 0, v, 0.0)
 
 
@@ -74,10 +86,10 @@ def velocity_dispersion_matrix(
     """Mass-fraction-weighted velocity dispersion matrix (B, 6), in the
     reference's order XX, YY, ZZ, XY, XZ, YZ."""
     m = torch.where(mask, mass, 0.0)
-    frac = m / torch.clamp(m.sum(1), min=1e-37)[:, None]
+    frac = m / torch.clamp(particle_sum(m), min=1e-37)[:, None]
     dv = torch.where(mask[..., None], vel - vcom[:, None, :], 0.0)
     x, y, z = dv[..., 0], dv[..., 1], dv[..., 2]
     return torch.stack(
-        [(frac * a * b).sum(1) for a, b in ((x, x), (y, y), (z, z), (x, y), (x, z), (y, z))],
+        [particle_sum(frac * a * b) for a, b in ((x, x), (y, y), (z, z), (x, y), (x, z), (y, z))],
         1,
     )

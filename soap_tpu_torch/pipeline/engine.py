@@ -398,8 +398,6 @@ def _process_bucket(
     overflow = torch.zeros(centre_hi.shape[0], dtype=torch.bool, device=centre_hi.device)
     for ptype, cap, cube in zip(ctx.ptypes, ctx.capacities, cubes):
         pt = chunk.ptypes[ptype]
-        if ptype == "PartType6" and pt.has_field("Weights"):
-            raise NotImplementedError("neutrino delta-f weights (PartType6) are not ported")
         starts, counts = halo_cell_ranges(
             pt.spec, pt.offsets, pt.counts, centre_hi, radius_com, cube
         )
@@ -418,6 +416,11 @@ def _process_bucket(
             chunk.boxsize,
         ) * a
         mass = fld("Masses")
+        if ptype == "PartType6" and pt.has_field("Weights"):
+            # SO mass profiles use the delta-f weighted neutrino masses;
+            # the raw masses stay a per-type field (RawNeutrinoMass)
+            fields["PartType6/Masses"] = mass
+            mass = mass * fld("Weights")
         vel = fld("Velocities")
         minus1 = torch.full(valid.shape, -1, dtype=torch.int64, device=valid.device)
         groupnr = fld("GroupNr_bound") if pt.has_field("GroupNr_bound") else minus1

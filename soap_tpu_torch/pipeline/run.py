@@ -327,7 +327,7 @@ def _check_halo_format(halo_format: str) -> None:
     if halo_format not in HALO_FORMATS:
         raise NotImplementedError(
             f"halo_format {halo_format!r}: the port reads HBTplus only; the other "
-            "finders' readers come with ROADMAP queue 1's membership item")
+            "finders' readers are ROADMAP section 1's finder item")
 
 
 def apply_category_filters(

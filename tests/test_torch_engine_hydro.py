@@ -91,7 +91,7 @@ CASES = _cases()
 
 
 def hydro_runs(parameter_file=None, jax_tile_plan=False, edit=None, select=None,
-               bench_args=False):
+               bench_args=False, universe=None):
     """Both engines on the hydro mock with a shipped parameter file's
     spec list and context (None: the default hydro list and context).
     ``edit`` changes the file's dictionary before both sides read it;
@@ -100,8 +100,9 @@ def hydro_runs(parameter_file=None, jax_tile_plan=False, edit=None, select=None,
     satellite phase and no retry rounds, each of which compiles new JAX
     programs).  With ``jax_tile_plan`` the port runs
     under the JAX engine's multi-type tile caps (``tile_caps``), and the
-    JAX engine's bucket calls are counted by pass."""
-    uni = build_mock_universe(**UNI)
+    JAX engine's bucket calls are counted by pass.  ``universe`` replaces
+    the hydro mock (``UNI``'s universe by default)."""
+    uni = build_mock_universe(**UNI) if universe is None else universe
     meta = run.mock_metadata(uni)
     params = jparams = None
     if parameter_file is not None and edit is None:

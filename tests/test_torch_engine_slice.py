@@ -120,19 +120,22 @@ def test_unported_keys_and_specs_raise(runs):
     bad_key = [HaloTypeSpec(kind="bound", group="BoundSubhalo", keys=("Mtot", "DopplerB"))]
     with pytest.raises(NotImplementedError, match="DopplerB"):
         HaloEngine(ctx, chunk, bad_key, "cpu").process(**runs["args"])
-    # neutrinos with delta-f weights
+    # neutrinos with delta-f weights run since PartType6 was ported:
+    # weights of one give the results of the same neutrinos without them
     pt = chunk.ptypes["PartType1"]
-    nu = tcd.stage_ptype(
-        np.random.default_rng(3).uniform(0, 25.0, (500, 3)),
-        {"Masses": np.full(500, 0.01, np.float32),
-         "Velocities": np.zeros((500, 3), np.float32),
-         "Weights": np.ones(500, np.float32)},
-        25.0, torch.device("cpu"), resolution=pt.spec.dims[0],
-    )
+    nu_fields = {"Masses": np.full(500, 0.01, np.float32),
+                 "Velocities": np.zeros((500, 3), np.float32)}
+    nu_pos = np.random.default_rng(3).uniform(0, 25.0, (500, 3))
     nu_ctx = dataclasses.replace(ctx, ptypes=("PartType1", "PartType6"), softening=(0.01, 0.01))
-    nu_chunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": pt, "PartType6": nu})
-    with pytest.raises(NotImplementedError, match="PartType6"):
-        HaloEngine(nu_ctx, nu_chunk, slice_specs(), "cpu").process(**runs["args"])
+    nu_runs = []
+    for extra in ({}, {"Weights": np.ones(500, np.float32)}):
+        nu = tcd.stage_ptype(nu_pos, dict(nu_fields, **extra), 25.0, torch.device("cpu"),
+                             resolution=pt.spec.dims[0])
+        nu_chunk = tcd.ChunkData(boxsize=25.0, ptypes={"PartType1": pt, "PartType6": nu})
+        nu_runs.append(HaloEngine(nu_ctx, nu_chunk, slice_specs(), "cpu").process(**runs["args"]))
+    for group, res in nu_runs[0].items():
+        for key, value in res.items():
+            np.testing.assert_array_equal(nu_runs[1][group][key], value, err_msg=key)
     # core-excised SOs run since parameter files were ported; an SO type
     # the engine has no definition for, and an aperture with both a
     # fixed radius and a radius property, are refused

@@ -103,7 +103,8 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     shipped JSON parameter file's) and a context from that file, and
     running the entry's in-memory half (``build_catalogue``) on the CPU
     with that file's list, and over three chunks with the in-memory
-    reader and read-ahead, loads no jax, soap_tpu, h5py or yaml; the
+    reader and read-ahead, and the membership program's in-memory join
+    (``compute_membership``), loads no jax, soap_tpu, h5py or yaml; the
     import primes the CPU math library."""
     code = (
         "import sys\n"
@@ -151,6 +152,13 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "out = run.build_catalogue(meta, run.mock_catalogue(uni), host, specs, device='cpu',\n"
         "                          nr_chunks=3, prefetch=True)\n"
         "assert len(out.chunks) == 3 and out.catalogue.n_halos == 6\n"
+        # the membership program's in-memory half, labels as the mock's
+        "from soap_tpu_torch.pipeline.membership import compute_membership\n"
+        "import numpy as np\n"
+        "ids = np.concatenate(uni.bound_ids)\n"
+        "grnr = np.repeat(np.arange(uni.n_halos), [len(b) for b in uni.bound_ids])\n"
+        "g, r = compute_membership(uni.ids, ids, grnr, batch_rows=100)\n"
+        "assert (g >= 0).sum() == len(ids) and (r[g < 0] == -1).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"
