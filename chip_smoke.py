@@ -96,10 +96,10 @@ Phases, each printing its lines and raising on failure:
  13. the chunked DMO entry: phase 11's inputs at ENTRY_CHUNKS Peano–Hilbert
     chunks with the in-memory reader and read-ahead staging (chunk N+1
     read and staged on a side stream while chunk N computes), the same
-    passes, printing per chunk the read-and-stage seconds in the reader
-    thread, the main thread's wait and the engine's seconds, the
-    particles staged against one chunk's, device memory after each
-    chunk and the peak; the catalogue must equal phase 11's, memory
+    passes with CHUNKED_TIMED_PASSES timed ones, printing per chunk the
+    read-and-stage seconds in the reader thread, the main thread's wait
+    and the engine's seconds, the particles staged against one chunk's,
+    device memory after each chunk and the peak; the catalogue must equal phase 11's, memory
     after each chunk stay within the baseline plus the next prestaged
     store, and a prestaged store equal the same chunk staged serially;
     then one pass without read-ahead;
@@ -117,7 +117,34 @@ Phases, each printing its lines and raising on failure:
     float64 numpy sums inside the SO radius the port reports;
  16. the membership program's in-memory join on the card's host: phase 6's
     universe's IDs, in its snapshot order, against its bound lists;
-    GroupNr_bound and Rank_bound must equal the labels the mock gives.
+    GroupNr_bound and Rank_bound must equal the labels the mock gives;
+    then against the same bound lists as a VR catalogue holds them (four
+    files with local offsets, ``io/finder_readers.py::vr_groupnr``):
+    GroupNr_bound the same, Rank_bound 0 for every bound particle (VR
+    gives no rank: the reference's fault, ported as it is);
+ 17. the entry under the other finders: phase 11's HBTplus catalogue
+    expressed as each other finder stores it
+    (``utils/mock_finders.py``): VR, Gadget-4 SubFind and EAGLE SubFind
+    through their readers' array halves, Rockstar through an ASCII
+    ``out_*.list`` and through four binary ``halos_*.bin`` chunks written
+    to a temporary directory and read back; each through build_catalogue
+    with phase 11's inputs otherwise (a warm pass, FINDER_TIMED_PASSES
+    timed passes, a checked pass); centrality and bound counts must be
+    phase 11's, every property group (BoundSubhalo, SO, ExclusiveSphere,
+    InclusiveSphere, ProjectedAperture) equal to phase 11's catalogue at
+    utils/parity.py's tolerances (the binary chunks' float32 centres: to
+    an HBTplus run at those centres), the sort order the same, InputHalos
+    the same but for the finder's passthrough, and no SOAP/* columns; the
+    phase prints which finders' groups are bit-equal;
+ 17c. VR and Rockstar (ASCII) on phase 5's mock (with satellites) through
+    build_catalogue at 1 and at 3 chunks, GPU against CPU (phase 5e's
+    check);
+ 18. the X-ray recalculation: the hydro path's 1.37M gas particles
+    (densities, temperatures, element mass fractions, masses) against a
+    5D table built in memory (``tools/xray_calculator.py::mock_table_5d``,
+    every default band and observing type) through
+    ``XrayCalculator.interpolate`` on the GPU and on the CPU: equal within
+    rtol 1e-12 in float64; timed.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -126,9 +153,11 @@ a CUDA device it exits 1 before printing any result.  Imports torch,
 numpy and soap_tpu_torch only.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -137,6 +166,7 @@ import torch
 
 from soap_tpu_torch.models import halo_slice as hs
 from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
+from soap_tpu_torch.io.finder_readers import vr_groupnr
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
@@ -154,15 +184,18 @@ from soap_tpu_torch.pipeline.run import (
     age_table, build_catalogue, entry_plan, make_context, mock_catalogue, mock_metadata,
 )
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
+from soap_tpu_torch.tools import xray_calculator as xc
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
-from soap_tpu_torch.utils.mock_data import add_neutrinos, build_mock_universe
+from soap_tpu_torch.utils.mock_data import add_neutrinos, build_mock_universe, snapshot_attrs
+from soap_tpu_torch.utils.mock_finders import finder_catalogue
 from soap_tpu_torch.utils.parity import (
     catalogue_differences, is_loose, key_close, scaled_error,
 )
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
-HYDRO_TIMED_PASSES = 3  # the hydro and COLIBRE paths', to fit the run's time limit
+HYDRO_TIMED_PASSES = 2  # the hydro, COLIBRE and FLAMINGO paths', to fit the run's time limit
+CHUNKED_TIMED_PASSES = 3  # the chunked main entry's, to fit the run's time limit
 GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
 FLAMINGO_CHUNKED_PASSES = 1  # the chunked FLAMINGO entry's, to fit the time limit
 NU_TIMED_PASSES = 1  # the FLAMINGO entry with neutrinos', to fit the time limit
@@ -222,8 +255,12 @@ F32_FLOPS = 67e12
 K2_FLOPS_PER_ROW = 34
 
 
+#: the run's start, for the seconds each line prints
+T_START = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - T_START:.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi_line():
@@ -1404,6 +1441,203 @@ def phase_membership(uni):
         f"{uni.n_halos} halos in {dt:.3f} s on the host ({len(snap_ids) / dt:.0f} IDs/s): "
         f"GroupNr_bound and Rank_bound equal the mock's labels ({int((grnr >= 0).sum())} "
         f"bound); h5py loaded: {'h5py' in sys.modules}")
+    # the same bound lists as a VR catalogue holds them: four files, each
+    # with offsets local to its own bound IDs, and no rank
+    files = []
+    for rows in np.array_split(np.arange(uni.n_halos), 4):
+        counts = lengths[rows]
+        files.append((np.cumsum(counts) - counts,
+                      np.concatenate([uni.bound_ids[i] for i in rows])))
+    n_vr, ids_vr, grnr_vr = vr_groupnr(files)
+    t0 = time.perf_counter()
+    grnr, rank = compute_membership(snap_ids, ids_vr, grnr_vr)
+    dt = time.perf_counter() - t0
+    bound = grnr >= 0
+    if n_vr != uni.n_halos or not np.array_equal(grnr, want_grnr):
+        raise AssertionError("membership: the VR bound lists' GroupNr_bound differs")
+    if not ((rank[bound] == 0).all() and (rank[~bound] == -1).all()):
+        raise AssertionError("membership: the VR bound lists' Rank_bound is not 0 where bound")
+    say("membership", f"the same bound lists as a VR catalogue over {len(files)} files: "
+        f"{len(snap_ids)} IDs in {dt:.3f} s ({len(snap_ids) / dt:.0f} IDs/s); GroupNr_bound "
+        f"equal to the mock's labels; Rank_bound 0 for all {int(bound.sum())} bound particles "
+        f"(VR gives no rank)")
+
+#: phase 17's finders' names in the kernels line
+FINDER_KEYS = {"VR": "vr", "Gadget4": "gadget4", "SubfindEagle": "subfind_eagle",
+               "Rockstar": "rockstar", "RockstarBinary": "rockstar_binary"}
+#: phase 17's finders: the four others, Rockstar both as an ASCII list
+#: and as binary chunks (read by the Rockstar reader)
+FINDERS = ("VR", "Gadget4", "SubfindEagle", "Rockstar", "RockstarBinary")
+FINDER_TIMED_PASSES = 1  # phase 17's, to fit the run's time limit
+#: the finders' passthrough groups in the catalogue
+FINDER_GROUPS = {"VR": {"VR"}, "SubfindEagle": {"SubFind"}}
+#: the catalogue's groups of computed properties
+PROPERTY_GROUPS = ("BoundSubhalo", "SO", "ExclusiveSphere", "InclusiveSphere",
+                   "ProjectedAperture")
+#: phase 17c's finders and chunk counts
+FINDERS_CHUNKED = ("VR", "Rockstar")
+FINDER_CHUNKS = (1, 3)
+
+
+def _halo_format(finder):
+    return "Rockstar" if finder.startswith("Rockstar") else finder
+
+
+def _bit_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_finders(dev, one):
+    """Phase 17: phase 11's universe through the entry under each other
+    finder (the same halos, centrality and bound counts in the same
+    order, so its GroupNr_bound indexes them), each held to phase 11's
+    catalogue group by group."""
+    inputs = one["inputs"]
+    meta, hbt = inputs["meta"], inputs["cat"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for finder in FINDERS:
+            tag = f"{finder}-entry"
+            t0 = time.perf_counter()
+            cat = finder_catalogue(finder, hbt, meta.h, meta.a, tmp)
+            t_read = time.perf_counter() - t0
+            if not (np.array_equal(cat.is_central, hbt.is_central)
+                    and np.array_equal(cat.nr_bound_part, hbt.nr_bound_part)):
+                raise AssertionError(f"{tag}: centrality or bound counts differ from HBTplus's")
+            centre_err = float(np.abs(cat.cofp - hbt.cofp).max())
+            moved = int((cat.cofp != hbt.cofp).any(1).sum())
+            run = drive_entry(tag, dict(inputs, cat=cat), dev, FINDER_TIMED_PASSES,
+                              halo_format=_halo_format(finder))
+            ref, what = one["out"], "phase 11's catalogue"
+            if not np.allclose(cat.cofp, hbt.cofp, rtol=1e-14, atol=0.0):
+                # the binary chunks' float32 centres: the HBTplus catalogue
+                # at those centres and search radii, one pass
+                ref = run_entry(dict(inputs, cat=dataclasses.replace(
+                    hbt, cofp=cat.cofp, search_radius=cat.search_radius)), dev)
+                what = "an HBTplus run at the same float32 centres"
+            out = run["out"]
+            got, want = out.catalogue, ref.catalogue
+            diffs = catalogue_differences(want, got, groups=PROPERTY_GROUPS)
+            if diffs:
+                raise AssertionError(f"{tag}: property groups differ from {what}: {diffs[:10]}")
+            if not np.array_equal(out.order, ref.order):
+                raise AssertionError(f"{tag}: sort order differs from {what}")
+            tops = {name: {p.split("/")[0] for p in c.datasets} for name, c in
+                    (("got", got), ("want", want))}
+            if (tops["got"] - tops["want"] != FINDER_GROUPS.get(finder, set())
+                    or tops["want"] - tops["got"] != {"HBTplus", "SOAP"}):
+                raise AssertionError(f"{tag}: groups {sorted(tops['got'])}, "
+                                     f"against {sorted(tops['want'])}")
+            for path, ds in want.datasets.items():
+                if path.startswith("InputHalos/") and not (
+                        _bit_equal(ds.data, got.datasets[path].data) or (
+                        path == "InputHalos/HaloCentre"
+                        and np.allclose(got.datasets[path].data, ds.data, rtol=1e-14, atol=0))):
+                    raise AssertionError(f"{tag}: {path} differs from {what}")
+            paths = [p for p in want.datasets if p.split("/")[0] in PROPERTY_GROUPS]
+            n_bit = sum(_bit_equal(want.datasets[p].data, got.datasets[p].data) for p in paths)
+            say(tag, f"catalogue built in {t_read:.3f} s; {moved} of {hbt.nr_halos} centres "
+                f"moved, at most {centre_err:.3e} Mpc from phase 11's; {len(paths)} property "
+                f"datasets within utils/parity.py's tolerances of {what}, {n_bit} of them "
+                f"bit-equal; sort order, centrality, "
+                f"bound counts and InputHalos the same; passthrough groups "
+                f"{sorted(tops['got'] - tops['want'])}, no SOAP/* or HBTplus/*")
+            runs[finder] = run
+    return runs
+
+
+def phase_finders_chunked(dev):
+    """Phase 17c: VR and Rockstar (ASCII) catalogues of phase 5's mock
+    (with satellites) through build_catalogue at 1 and at 3 chunks, on the
+    GPU against the CPU: the same catalogue (datasets, dtypes, shapes,
+    attributes; exact sort, passthrough and integers; floats within
+    tolerance)."""
+    uni = build_mock_universe(**ENGINE_MOCK)
+    inputs = entry_inputs(uni, True)
+    meta, hbt = inputs["meta"], inputs["cat"]
+    launches = {"range_gather": 0, "inertia_loop": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for finder in FINDERS_CHUNKED:
+            cat = finder_catalogue(finder, hbt, meta.h, meta.a, tmp)
+            for n in FINDER_CHUNKS:
+                kw = dict(nr_chunks=n, halo_format=finder)
+                t0 = time.perf_counter()
+                ref = run_entry(dict(inputs, cat=cat), "cpu", **kw)
+                t1 = time.perf_counter()
+                rg.launches = il.launches = 0
+                got = run_entry(dict(inputs, cat=cat), dev, **kw)
+                n1, n2 = rg.launches, il.launches
+                t2 = time.perf_counter()
+                diffs = catalogue_differences(ref.catalogue, got.catalogue)
+                if diffs:
+                    raise AssertionError(f"finders-chunked {finder} at {n} chunks: GPU "
+                                         f"catalogue differs from CPU: {diffs[:10]}")
+                if not np.array_equal(ref.order, got.order):
+                    raise AssertionError(f"finders-chunked {finder} at {n} chunks: sort orders "
+                                         f"differ")
+                if n1 == 0 or n2 == 0 or len(got.chunks) != n:
+                    raise AssertionError(f"finders-chunked {finder} at {n} chunks: "
+                                         f"{len(got.chunks)} chunks, K1 {n1}, K2 {n2}")
+                launches["range_gather"] += n1
+                launches["inertia_loop"] += n2
+                say("finders-chunked", f"{finder} at {n} chunk(s): {cat.nr_halos} halos "
+                    f"({int((~cat.is_central).sum())} satellites), "
+                    f"{len(got.catalogue.datasets)} datasets: GPU == CPU (names, dtypes, "
+                    f"shapes, attributes; exact sort, passthrough and integers; floats within "
+                    f"tolerance); launches K1 {n1}, K2 {n2}; CPU {t1 - t0:.1f} s, GPU "
+                    f"{t2 - t1:.1f} s")
+    return dict(launches=launches)
+
+
+XRAY_RTOL = 1e-12
+
+
+def phase_xray(dev, uni):
+    """Phase 18: the hydro universe's gas through the X-ray interpolation
+    of a mock 5D table, every default band and observing type at once,
+    on the GPU against the CPU (float64 both)."""
+    gas = uni.extra_ptypes["PartType0"]
+    units = snapshot_attrs(uni)["Units"]
+    ul, um = units["Unit length in cgs (U_L)"], units["Unit mass in cgs (U_M)"]
+    rho = np.asarray(gas["Densities"], np.float64) * um / ul**3 / uni.a**3
+    T = np.asarray(gas["Temperatures"], np.float64)
+    mf = np.asarray(gas["ElementMassFractions"], np.float64)
+    m = np.asarray(gas["Masses"], np.float64) * um
+    bins, tables = xc.mock_table_5d()
+    bands = [b for _ in xc.DEFAULT_OBSERVING_TYPES for b in xc.DEFAULT_BANDS]
+    otypes = [o for o in xc.DEFAULT_OBSERVING_TYPES for _ in xc.DEFAULT_BANDS]
+    z = 1.0 / uni.a - 1.0
+    t0 = time.perf_counter()
+    ref = xc.XrayCalculator.from_arrays(z, bins, tables, bands, otypes, "cpu").interpolate_tensor(
+        rho, T, mf, m, bands, otypes)
+    t_cpu = time.perf_counter() - t0
+    calc = xc.XrayCalculator.from_arrays(z, bins, tables, bands, otypes, dev)
+    t0 = time.perf_counter()
+    lum = calc.interpolate(rho, T, mf, m, bands, otypes)  # from and to the host
+    t_host = time.perf_counter() - t0
+    args = [torch.tensor(x, device=dev) for x in (rho, T, mf, m)]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = calc.interpolate_tensor(*args, bands, otypes)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = got.cpu()
+    if not (torch.equal(got, torch.from_numpy(lum)) and torch.isfinite(got).all()):
+        raise AssertionError("xray: GPU results differ between calls or are not finite")
+    if not torch.equal(got == 0, ref == 0) or not torch.allclose(got, ref, rtol=XRAY_RTOL,
+                                                                   atol=0.0):
+        raise AssertionError("xray: GPU luminosities differ from the CPU's")
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-300)).max().item()
+    inside = float((ref[:, 0] > 0).double().mean())
+    dt = float(np.median(times))
+    say("xray", f"{len(rho)} gas particles x {len(bands)} band and observing-type columns "
+        f"(table {tables[bands[0]][otypes[0]].shape}): GPU == CPU within rtol {XRAY_RTOL} "
+        f"(max rel err {rel:.3e}), {inside:.4f} of particles inside the table; GPU median "
+        f"{dt * 1e3:.2f} ms of 3 ({len(rho) / dt:.4g} particles/s) on device-resident inputs, "
+        f"{t_host:.3f} s from and to the host (first call); CPU {t_cpu:.2f} s")
 
 
 def phase_profile(dev, tag, inputs):
@@ -1465,13 +1699,16 @@ def main():
     main_entry_run = phase_entry_main(dev, main_uni)
     flamingo_entry_run = phase_entry_flamingo(dev, hydro_uni)
     main_chunked_run = phase_entry_chunked("main-entry-chunked", dev, main_entry_run,
-                                           TIMED_PASSES)
+                                           CHUNKED_TIMED_PASSES)
     timings_run = phase_timings_chunked(dev)
     flamingo_chunked_run = phase_entry_chunked("flamingo-entry-chunked", dev,
                                                flamingo_entry_run, FLAMINGO_CHUNKED_PASSES,
                                                serial_pass=False)
     nu_entry_run = phase_entry_neutrinos(dev, hydro_uni)
     phase_membership(main_uni)
+    finder_runs = phase_finders(dev, main_entry_run)
+    finders_chunked_run = phase_finders_chunked(dev)
+    phase_xray(dev, hydro_uni)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
@@ -1483,7 +1720,10 @@ def main():
     # flamingo_entry_path_launches, main_entry_chunked_path_launches,
     # flamingo_entry_chunked_path_launches (one timed pass over all
     # chunks), timings_chunked_path_launches (phase 13t's GPU run) and
-    # flamingo_nu_entry_path_launches (phase 15): those paths';
+    # flamingo_nu_entry_path_launches (phase 15), vr_, gadget4_,
+    # subfind_eagle_, rockstar_ and rockstar_binary_entry_path_launches
+    # (phase 17) and finders_chunked_path_launches (phase 17c's GPU runs,
+    # summed): those paths';
     # path_checks: each path's checked
     # pass (calls, max abs err against the plain version, the shapes it
     # gave the kernel in brief); cell, ms, plain_ms, bound_ms and
@@ -1494,7 +1734,8 @@ def main():
             "main-entry": main_entry_run, "flamingo-entry": flamingo_entry_run,
             "main-entry-chunked": main_chunked_run,
             "flamingo-entry-chunked": flamingo_chunked_run,
-            "flamingo-nu-entry": nu_entry_run}
+            "flamingo-nu-entry": nu_entry_run,
+            **{f"{f}-entry": r for f, r in finder_runs.items()}}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -1519,6 +1760,9 @@ def main():
                     flamingo_entry_chunked_path_launches=flamingo_chunked_run["launches"][name],
                     timings_chunked_path_launches=timings_run["launches"][name],
                     flamingo_nu_entry_path_launches=nu_entry_run["launches"][name],
+                    **{f"{FINDER_KEYS[f]}_entry_path_launches": r["launches"][name]
+                       for f, r in finder_runs.items()},
+                    finders_chunked_path_launches=finders_chunked_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

@@ -1,51 +1,30 @@
-"""The halo-finder catalogue the entry runs on, and its HBTplus reader.
+"""The halo-finder catalogue the entry runs on, its HBTplus reader and
+the readers of every finder by name.
 
 The port's copy of ``soap_tpu/io/halo_catalogue.py``'s
-``HaloCatalogue`` and ``read_hbtplus_catalogue`` (reference
+``read_hbtplus_catalogue`` (reference
 ``SOAP/catalogue_readers/read_hbtplus.py``): an HBTplus ``SubSnap``
 (the unsorted multi-file layout or the sorted single file), lengths in
 Mpc/h comoving and masses in Msun/h converted to the snapshot's Mpc and
 1e10 Msun, orphans (``Nbound == 0``) dropped, search radius 1.01 x
 ``REncloseComoving``, and TrackId / HostHaloId / Depth / peak-mass
-passthrough columns; and ``read_hbtplus_groupnr``, the bound-particle
-lists the membership program joins on.  The readers import ``h5py``
-inside the functions that open files, so importing this module loads no
-h5py.  The other finders' readers are not ported.
+passthrough columns; ``read_hbtplus_groupnr``, the bound-particle lists
+the membership program joins on; and the two dispatch tables,
+``CATALOGUE_READERS`` (the five finders, the other four from
+``io/finder_readers.py``) and ``GROUPNR_READERS`` (HBTplus and VR, as in
+the JAX package).  The readers import ``h5py`` inside the functions that
+open files, so importing this module loads no h5py.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-
-@dataclass
-class HaloCatalogue:
-    """Host-side halo catalogue ready for the engine."""
-
-    nr_halos: int
-    index: np.ndarray  # i64 catalogue row of each halo (pre-filter)
-    cofp: np.ndarray  # (H, 3) f64 comoving centre of potential
-    search_radius: np.ndarray  # (H,) f64 comoving
-    is_central: np.ndarray  # (H,) bool
-    nr_bound_part: np.ndarray  # (H,) i64
-    fof_id: np.ndarray  # (H,) i64 host FOF group id
-    passthrough: Dict[str, np.ndarray] = field(default_factory=dict)
-
-    def select(self, mask: np.ndarray) -> "HaloCatalogue":
-        return HaloCatalogue(
-            nr_halos=int(mask.sum()),
-            index=self.index[mask],
-            cofp=self.cofp[mask],
-            search_radius=self.search_radius[mask],
-            is_central=self.is_central[mask],
-            nr_bound_part=self.nr_bound_part[mask],
-            fof_id=self.fof_id[mask],
-            passthrough={k: v[mask] for k, v in self.passthrough.items()},
-        )
+from soap_tpu_torch.io import finder_readers as fr
+from soap_tpu_torch.io.halos import HaloCatalogue
 
 
 def _hbt_layout(basename: str) -> Tuple[str, List[str]]:
@@ -230,7 +209,17 @@ def read_hbtplus_catalogue(
     return hbtplus_catalogue(subs, h, length_unit, mass_unit, keep_orphans)
 
 
+#: the entry's catalogue readers by finder (reference dispatch:
+#: ``halo_centres.py:75-96``): ``reader(basename, h=..., a=...)``
+CATALOGUE_READERS = {
+    "HBTplus": read_hbtplus_catalogue,
+    "VR": fr.read_vr_catalogue,
+    "Gadget4": fr.read_gadget4_catalogue,
+    "SubfindEagle": fr.read_subfind_eagle_catalogue,
+    "Rockstar": fr.read_rockstar_catalogue,
+}
 #: the membership program's readers by finder: (nr_halos, ids_bound,
-#: grnr_bound[, rank_bound[, potentials]]); the other finders are not
-#: ported
-GROUPNR_READERS = {"HBTplus": read_hbtplus_groupnr}
+#: grnr_bound[, rank_bound[, potentials]]).  Gadget-4's bound lists need
+#: the snapshot too (``fr.read_gadget4_groupnr(tab, snap)``), so, as in
+#: the JAX package, only these two are registered
+GROUPNR_READERS = {"HBTplus": read_hbtplus_groupnr, "VR": fr.read_vr_groupnr}

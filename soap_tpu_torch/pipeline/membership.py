@@ -26,7 +26,13 @@ This program is integer joins and file IO with no dense arithmetic, so
 it runs on the host with numpy and never touches the GPU, as the
 reference keeps it off its accelerator.  ``compute_membership`` and
 ``compute_fof_groups`` are the in-memory half and need no h5py; the
-functions that open files import it.  Only HBTplus catalogues are read.
+functions that open files import it.
+
+The bound lists come from ``io/halo_catalogue.py::GROUPNR_READERS``:
+HBTplus and VR, as in the JAX package.  VR gives no rank, so, as in the
+reference, every bound particle of a VR run gets ``Rank_bound`` 0 (the
+labeller's ``else 0``); the other finders raise before anything is
+written.
 """
 
 from __future__ import annotations
@@ -449,9 +455,9 @@ def run_group_membership(
     ``return_labels=False`` the labels live only in the files, and the
     run's memory stays bounded."""
     if halo_format not in GROUPNR_READERS:
-        raise NotImplementedError(
-            f"halo_format {halo_format!r}: the port's membership reads HBTplus only; the "
-            "other finders' readers are ROADMAP section 1's finder item")
+        raise ValueError(
+            f"halo_format {halo_format!r}: membership reads the bound lists of "
+            f"{', '.join(GROUPNR_READERS)} only")
     batch = batch_rows or BATCH
     pot_bound = None
     if with_potentials and halo_format == "HBTplus":

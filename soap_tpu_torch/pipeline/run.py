@@ -1,7 +1,7 @@
 """The halo-properties entry: inputs in, SOAP catalogue out.
 
-The port's copy of ``soap_tpu/pipeline/run.py``, for one device and
-HBTplus catalogues, in two halves:
+The port's copy of ``soap_tpu/pipeline/run.py``, for one device and the
+five halo finders (``HALO_FORMATS``), in two halves:
 
 - ``build_catalogue`` (torch and numpy only; runs on the card): from a
   snapshot-metadata object, a ``HaloCatalogue``, the particle fields
@@ -9,14 +9,15 @@ HBTplus catalogues, in two halves:
   engine over the run's Peano–Hilbert chunks (``pipeline/chunks.py::
   process_chunks``: read-ahead staging, scratch files and restart, a
   host's share of a multi-host run and the combine), the category
-  filters, ``drop_disabled_keys``, the spatial sort and the derived
-  ``SOAP/*`` columns, and returns the sorted, unit-annotated
-  ``io/catalogue.py::Catalogue``, with per-halo and per-property
-  timings when asked;
+  filters, ``drop_disabled_keys``, the spatial sort and, for HBTplus
+  catalogues, the derived ``SOAP/*`` columns, and returns the sorted,
+  unit-annotated ``io/catalogue.py::Catalogue``, with per-halo and
+  per-property timings when asked;
 - ``compute_halo_properties`` (the JAX signature): reads the SWIFT
-  snapshot's metadata, the membership file and the HBTplus catalogues,
-  calls ``build_catalogue`` with a file reader and writes the catalogue
-  and the ``SOAP.used_parameters.yml`` mirror.  Only this half opens
+  snapshot's metadata, the membership file and the finder's catalogues
+  (``io/halo_catalogue.py::CATALOGUE_READERS``), calls
+  ``build_catalogue`` with a file reader and writes the catalogue and
+  the ``SOAP.used_parameters.yml`` mirror.  Only this half opens
   files; h5py and yaml are imported inside the functions that do (the
   scratch files of ``scratch_dir`` are files too).
 
@@ -46,7 +47,9 @@ from soap_tpu_torch.core.registry import full_property_table
 from soap_tpu_torch.core.units import UnitRegistry
 from soap_tpu_torch.io.catalogue import Catalogue, make_catalogue, spatial_sort_order
 from soap_tpu_torch.io.fof_catalogue import fof_join
-from soap_tpu_torch.io.halo_catalogue import HaloCatalogue, hbtplus_catalogue
+from soap_tpu_torch.io.halo_catalogue import (
+    CATALOGUE_READERS, HaloCatalogue, hbtplus_catalogue,
+)
 from soap_tpu_torch.io.swift_snapshot import mask_cells_for_spheres
 from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.parallel import multihost
@@ -320,14 +323,13 @@ GROUP_TO_BASE = {
 }
 
 #: the halo finders the entry reads
-HALO_FORMATS = ("HBTplus",)
+HALO_FORMATS = tuple(CATALOGUE_READERS)
 
 
 def _check_halo_format(halo_format: str) -> None:
     if halo_format not in HALO_FORMATS:
-        raise NotImplementedError(
-            f"halo_format {halo_format!r}: the port reads HBTplus only; the other "
-            "finders' readers are ROADMAP section 1's finder item")
+        raise ValueError(
+            f"halo_format {halo_format!r}: the entry reads {', '.join(HALO_FORMATS)}")
 
 
 def apply_category_filters(
@@ -522,7 +524,9 @@ def build_catalogue(
     The selections, the adjacent catalogues (``SOAP/ProgenitorIndex``,
     ``SOAP/DescendantIndex``), the SWIFT FOF groups (``FOF/*``) and the
     input names recorded under ``Parameters`` are as in the JAX
-    ``compute_halo_properties``."""
+    ``compute_halo_properties``; the ``SOAP/*`` and ``FOF/*`` columns come
+    only with an HBTplus catalogue (its ``HostHaloId`` and ``TrackId``).
+    A ``halo_format`` outside ``HALO_FORMATS`` raises ValueError."""
     _check_halo_format(halo_format)
     t_start = time.perf_counter()
     device = torch.device(device)
@@ -618,40 +622,45 @@ def build_catalogue(
     inv_order = np.empty_like(order)
     inv_order[order] = np.arange(len(order))
     soap_cols: Dict[str, np.ndarray] = {}
-    host_fof = cat.passthrough["HBTplus/HostHaloId"]
-    host_fof_sorted = host_fof[order]
-    soap_cols["SOAP/HostHaloIndex"] = derived.host_halo_index(
-        host_fof_sorted, cat.is_central.astype(bool)[order])[inv_order]
-    track_sorted = cat.passthrough["HBTplus/TrackId"][order]
-    if "BoundSubhalo" in results and "Mtot" in results["BoundSubhalo"]:
-        soap_cols["SOAP/SubhaloRankByBoundMass"] = derived.subhalo_rank_by_bound_mass(
-            host_fof_sorted, track_sorted, results["BoundSubhalo"]["Mtot"][order]
-        )[inv_order]
-    # FOF group join for centrals (``combine_chunks.py:406-535``)
-    if fof_groups is not None:
-        soap_cols.update(fof_join(fof_groups, host_fof, cat.is_central.astype(bool)))
-    # mass-binned reduced-snapshot sampling (``combine_chunks.py:606-674``)
-    rs_params = (
-        parameter_file.get_parameters().get("calculations", {}).get("reduced_snapshots")
-        if parameter_file else None
-    )
-    if rs_params and "SO/200_crit" in results:
-        msun_per_unit = meta.snap_units_cgs["Unit mass in cgs (U_M)"] / 1.98841e33
-        soap_cols["SOAP/IncludedInReducedSnapshot"] = derived.included_in_reduced_snapshot(
-            results["SO/200_crit"]["Mtot"][order] * msun_per_unit,
-            halos_per_bin=int(rs_params["halos_per_bin"]),
-            bin_size_dex=float(rs_params["halo_bin_size_dex"]),
-            min_halo_mass_msun=float(rs_params["min_halo_mass"]),
-        )[inv_order]
-    # progenitor/descendant rows: TrackId matched against the adjacent
-    # snapshots' spatially sorted catalogues (``combine_chunks.py:676-735``)
-    for name, other in (("SOAP/ProgenitorIndex", prev_catalogue),
-                        ("SOAP/DescendantIndex", next_catalogue)):
-        other_sorted = None
-        if other is not None:
-            o_order = spatial_sort_order(other.cofp, other.index, meta.boxsize, cells_per_dim)
-            other_sorted = other.passthrough["HBTplus/TrackId"][o_order]
-        soap_cols[name] = derived.progenitor_descendant_index(track_sorted, other_sorted)[inv_order]
+    # the derived columns read HBTplus TrackIds and host haloes; the other
+    # finders' catalogues get none, as in the JAX entry
+    if "HBTplus/HostHaloId" in cat.passthrough:
+        host_fof = cat.passthrough["HBTplus/HostHaloId"]
+        host_fof_sorted = host_fof[order]
+        soap_cols["SOAP/HostHaloIndex"] = derived.host_halo_index(
+            host_fof_sorted, cat.is_central.astype(bool)[order])[inv_order]
+        track_sorted = cat.passthrough["HBTplus/TrackId"][order]
+        if "BoundSubhalo" in results and "Mtot" in results["BoundSubhalo"]:
+            soap_cols["SOAP/SubhaloRankByBoundMass"] = derived.subhalo_rank_by_bound_mass(
+                host_fof_sorted, track_sorted, results["BoundSubhalo"]["Mtot"][order]
+            )[inv_order]
+        # FOF group join for centrals (``combine_chunks.py:406-535``)
+        if fof_groups is not None:
+            soap_cols.update(fof_join(fof_groups, host_fof, cat.is_central.astype(bool)))
+        # mass-binned reduced-snapshot sampling (``combine_chunks.py:606-674``)
+        rs_params = (
+            parameter_file.get_parameters().get("calculations", {}).get("reduced_snapshots")
+            if parameter_file else None
+        )
+        if rs_params and "SO/200_crit" in results:
+            msun_per_unit = meta.snap_units_cgs["Unit mass in cgs (U_M)"] / 1.98841e33
+            soap_cols["SOAP/IncludedInReducedSnapshot"] = derived.included_in_reduced_snapshot(
+                results["SO/200_crit"]["Mtot"][order] * msun_per_unit,
+                halos_per_bin=int(rs_params["halos_per_bin"]),
+                bin_size_dex=float(rs_params["halo_bin_size_dex"]),
+                min_halo_mass_msun=float(rs_params["min_halo_mass"]),
+            )[inv_order]
+        # progenitor/descendant rows: TrackId matched against the adjacent
+        # snapshots' spatially sorted catalogues (``combine_chunks.py:676-735``)
+        for name, other in (("SOAP/ProgenitorIndex", prev_catalogue),
+                            ("SOAP/DescendantIndex", next_catalogue)):
+            other_sorted = None
+            if other is not None:
+                o_order = spatial_sort_order(
+                    other.cofp, other.index, meta.boxsize, cells_per_dim)
+                other_sorted = other.passthrough["HBTplus/TrackId"][o_order]
+            soap_cols[name] = derived.progenitor_descendant_index(
+                track_sorted, other_sorted)[inv_order]
 
     input_halos = {
         "cofp": cat.cofp,
@@ -746,18 +755,20 @@ def compute_halo_properties(
     """The file half of the entry: one snapshot on one device.
 
     Reads the snapshot's metadata (with the membership file as extra
-    input), the HBTplus catalogue and, when named, the adjacent
-    catalogues and the SWIFT FOF groups; runs ``build_catalogue`` with a
-    reader of the snapshot's cells (``chunks.file_reader``; over
+    input) and the catalogue of ``halo_format``, one of ``HALO_FORMATS``
+    (HBTplus, VR, Gadget4, SubfindEagle, Rockstar; any other name raises
+    ValueError before anything is read or written), and for an HBTplus
+    catalogue, when named, the adjacent snapshots' catalogues (a missing
+    one is skipped) and the SWIFT FOF groups; runs ``build_catalogue``
+    with a reader of the snapshot's cells (``chunks.file_reader``; over
     ``io_processes`` worker processes when more than one) on ``device``,
     with its chunk, scratch, multi-host and timing options; writes
     ``output_file`` and, with a parameter file, ``SOAP.used_parameters.yml``
-    beside it, unless this host did not combine.  The other finders raise
-    ``NotImplementedError``; a process runs on the one device it is given
-    (halo batches across several GPUs are not ported)."""
+    beside it, unless this host did not combine.  A process runs on the
+    one device it is given (halo batches across several GPUs are not
+    ported)."""
     from soap_tpu_torch.io.catalogue_writer import write_catalogue
     from soap_tpu_torch.io.fof_catalogue import read_fof_groups
-    from soap_tpu_torch.io.halo_catalogue import read_hbtplus_catalogue
     from soap_tpu_torch.io.swift_snapshot import SnapshotMetadata
 
     _check_halo_format(halo_format)
@@ -766,17 +777,21 @@ def compute_halo_properties(
         snapshot_file, [membership_file] if membership_file else [],
         ref_filename=reference_snapshot,
     )
-    cat = read_hbtplus_catalogue(halo_basename, h=meta.h, a=meta.a)
+    read = CATALOGUE_READERS[halo_format]
+    cat = read(halo_basename, h=meta.h, a=meta.a)
     ptypes, specs = entry_plan(meta, dmo, parameter_file, specs)
     selected = select_halos(cat, halo_indices, centrals_only, max_halos)
     reader = file_reader(meta, selected, specs, ptypes, age_table(meta), io_processes)
 
+    # the adjacent catalogues and the FOF groups feed only the SOAP/* and
+    # FOF/* columns, which need an HBTplus catalogue
+    hbtplus = "HBTplus/HostHaloId" in cat.passthrough
     adjacent = {}
     for name, basename in (("prev", prev_halo_basename), ("next", next_halo_basename)):
         adjacent[name] = None
-        if basename:
+        if basename and hbtplus:
             try:
-                adjacent[name] = read_hbtplus_catalogue(basename, h=meta.h, a=meta.a)
+                adjacent[name] = read(basename, h=meta.h, a=meta.a)
             except FileNotFoundError:
                 if verbose:
                     _progress(f"no adjacent catalogue for the {name} snapshot: {basename}")
@@ -785,7 +800,7 @@ def compute_halo_properties(
         centrals_only=centrals_only, max_halos=max_halos, halo_indices=halo_indices,
         min_read_radius_mpc=min_read_radius_mpc,
         prev_catalogue=adjacent["prev"], next_catalogue=adjacent["next"],
-        fof_groups=read_fof_groups(fof_filename) if fof_filename else None,
+        fof_groups=read_fof_groups(fof_filename) if fof_filename and hbtplus else None,
         snapshot_file=snapshot_file, membership_file=membership_file,
         halo_basename=halo_basename, halo_format=halo_format,
         nr_chunks=nr_chunks, scratch_dir=scratch_dir, host_index=host_index,

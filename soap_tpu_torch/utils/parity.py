@@ -82,7 +82,7 @@ def _same_value(a, b) -> bool:
     return a.tobytes() == b.tobytes()
 
 
-def catalogue_differences(ref, got) -> list:
+def catalogue_differences(ref, got, groups=None) -> list:
     """Where catalogue ``got`` departs from ``ref`` (two
     ``io/catalogue.py::Catalogue`` objects; their time stamps and git
     hashes are not compared): the same groups with the same attributes,
@@ -90,27 +90,34 @@ def catalogue_differences(ref, got) -> list:
     attributes, equal data for the passthrough, cell and ``SOAP/*``
     groups and every integer dataset, and each float property within its
     key's class (``key_close``); timing datasets (``is_timing``) by name,
-    dtype, shape and attributes only.  Returns the differences as text
-    (empty when none)."""
+    dtype, shape and attributes only.  ``groups`` limits the comparison
+    to the groups and datasets under those top-level names.  Returns the
+    differences as text (empty when none)."""
     from soap_tpu_torch.core.registry import full_property_table
+
+    def chosen(items):
+        return {k: v for k, v in items.items()
+                if groups is None or k.split("/")[0] in groups}
 
     table = full_property_table()
     out = []
+    ref_groups, got_groups = chosen(ref.groups), chosen(got.groups)
+    ref_data, got_data = chosen(ref.datasets), chosen(got.datasets)
     if ref.n_halos != got.n_halos:
         out.append(f"{got.n_halos} halos, not {ref.n_halos}")
-    if list(ref.groups) != list(got.groups):
-        out.append(f"groups {sorted(set(ref.groups) ^ set(got.groups))} differ")
-    for path, attrs in ref.groups.items():
-        other = got.groups.get(path, {})
+    if list(ref_groups) != list(got_groups):
+        out.append(f"groups {sorted(set(ref_groups) ^ set(got_groups))} differ")
+    for path, attrs in ref_groups.items():
+        other = got_groups.get(path, {})
         for k in sorted(set(attrs) | set(other)):
             if k not in attrs or k not in other or not _same_value(attrs[k], other[k]):
                 out.append(f"attribute {path}:{k} differs")
-    if list(ref.datasets) != list(got.datasets):
-        out.append(f"datasets {sorted(set(ref.datasets) ^ set(got.datasets))} differ")
-    for path, ds in ref.datasets.items():
-        if path not in got.datasets:
+    if list(ref_data) != list(got_data):
+        out.append(f"datasets {sorted(set(ref_data) ^ set(got_data))} differ")
+    for path, ds in ref_data.items():
+        if path not in got_data:
             continue
-        g = got.datasets[path]
+        g = got_data[path]
         a, b = np.asarray(ds.data), np.asarray(g.data)
         if a.dtype != b.dtype or a.shape != b.shape:
             out.append(f"{path}: {b.dtype} {b.shape}, not {a.dtype} {a.shape}")

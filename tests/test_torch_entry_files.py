@@ -405,27 +405,27 @@ def test_in_memory_half_equals_file_half(sims, mem_dmo, tmp_path):
 @pytest.mark.parametrize("arg", [
     dict(nr_chunks=2), dict(scratch_dir="scratch"), dict(host_count=2),
     dict(record_halo_timings=True), dict(record_property_timings=True),
-    dict(halo_format="VR"),
+    dict(halo_format="NoSuchFinder"),
 ])
 def test_unsupported_arguments_raise(sims, tmp_path, arg):
-    """Another finder raises NotImplementedError, and a multi-host run
-    without a scratch directory ValueError, both before writing; the
-    chunk, scratch and timing arguments the port once refused now run
-    and write the catalogue with what they add."""
+    """A finder no reader knows, and a multi-host run without a scratch
+    directory, raise ValueError before writing (the four other finders
+    run: ``tests/test_torch_finder_entry.py``); the chunk, scratch and
+    timing arguments the port once refused now run and write the
+    catalogue with what they add."""
     s = sims["dmo"]
     out = tmp_path / "out.hdf5"
     kw = dict(arg, scratch_dir=str(tmp_path / arg["scratch_dir"])) if "scratch_dir" in arg \
         else arg
     if "halo_format" in arg or "host_count" in arg:
-        error = NotImplementedError if "halo_format" in arg else ValueError
-        with pytest.raises(error):
+        with pytest.raises(ValueError):
             run.compute_halo_properties(
                 s["snapshot"], s["membership"], s["hbt_basename"], str(out),
                 device="cpu", verbose=False, **kw)
         assert not os.path.exists(out)
         if "halo_format" in arg:
             meta = run.mock_metadata(s["uni"])
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(ValueError, match="HBTplus, VR, Gadget4, SubfindEagle, Rockstar"):
                 run.build_catalogue(meta, run.mock_catalogue(s["uni"]), {}, [], device="cpu",
                                     halo_format=arg["halo_format"])
         return

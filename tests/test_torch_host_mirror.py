@@ -104,8 +104,11 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     running the entry's in-memory half (``build_catalogue``) on the CPU
     with that file's list, and over three chunks with the in-memory
     reader and read-ahead, and the membership program's in-memory join
-    (``compute_membership``), loads no jax, soap_tpu, h5py or yaml; the
-    import primes the CPU math library."""
+    (``compute_membership``), importing the finder readers, the command
+    line and the X-ray calculator, building each other finder's
+    catalogue from its array half (and Rockstar's from its files) and
+    interpolating a mock X-ray table built in memory, loads no jax,
+    soap_tpu, h5py or yaml; the import primes the CPU math library."""
     code = (
         "import sys\n"
         "import soap_tpu_torch\n"
@@ -159,6 +162,22 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "grnr = np.repeat(np.arange(uni.n_halos), [len(b) for b in uni.bound_ids])\n"
         "g, r = compute_membership(uni.ids, ids, grnr, batch_rows=100)\n"
         "assert (g >= 0).sum() == len(ids) and (r[g < 0] == -1).all()\n"
+        # the other finders, the command line and the X-ray calculator
+        "import soap_tpu_torch.io.finder_readers, soap_tpu_torch.cli, tempfile\n"
+        "import soap_tpu_torch.tools.xray_calculator as xc\n"
+        "from soap_tpu_torch.utils import mock_finders\n"
+        "cat = run.mock_catalogue(uni)\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    for f in ('VR', 'Gadget4', 'SubfindEagle', 'Rockstar', 'RockstarBinary'):\n"
+        "        got = mock_finders.finder_catalogue(f, cat, uni.h, uni.a, tmp)\n"
+        "        assert (got.nr_bound_part == cat.nr_bound_part).all(), f\n"
+        "soap_tpu_torch.cli.build_parser().parse_args(['membership', '--halo-format', 'VR'])\n"
+        "bins, tables = xc.mock_table_5d()\n"
+        "calc = xc.XrayCalculator.from_arrays(0.1, bins, tables, ['ROSAT'], ['photons_observed'],\n"
+        "                                     'cpu')\n"
+        "lum = calc.interpolate(np.full(4, 1e-26), np.full(4, 1e7), np.full((4, 9), 0.01),\n"
+        "                       np.full(4, 1e39), ['ROSAT'], ['photons_observed'])\n"
+        "assert lum.shape == (4, 1) and (lum > 0).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"

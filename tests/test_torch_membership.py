@@ -239,9 +239,20 @@ def test_fof_snapshot_type_without_group_ids_raises(sim):
 
 
 def test_other_finders_raise(sim):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mem.run_group_membership(sim["snapshot"], sim["hbt_basename"],
-                                 os.path.join(sim["tmp"], "vr.hdf5"), halo_format="VR")
+    """The finders without a bound-list reader (as in the JAX package,
+    which fails on them with KeyError) raise ValueError naming the ones
+    membership reads, before anything is written; VR runs
+    (``tests/test_torch_finder_entry.py``)."""
+    assert sorted(GROUPNR_READERS) == ["HBTplus", "VR"]
+    for finder in ("Rockstar", "Gadget4", "SubfindEagle"):
+        out = os.path.join(sim["tmp"], f"{finder}.hdf5")
+        with pytest.raises(ValueError, match="HBTplus, VR"):
+            mem.run_group_membership(sim["snapshot"], sim["hbt_basename"], out,
+                                     halo_format=finder)
+        assert not os.path.exists(out)
+        with pytest.raises(KeyError):
+            jax_mem.run_group_membership(sim["snapshot"], sim["hbt_basename"], out,
+                                         halo_format=finder)
 
 
 def test_batch_size_is_a_keyword_not_an_environment_variable():
