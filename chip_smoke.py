@@ -5,6 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py            # add --profile for kernel profiles
                                      # (main, hydro and COLIBRE paths)
+    python3 chip_smoke.py --multi-device-only   # phases 11 and 19
 
 Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
@@ -144,13 +145,25 @@ Phases, each printing its lines and raising on failure:
     5D table built in memory (``tools/xray_calculator.py::mock_table_5d``,
     every default band and observing type) through
     ``XrayCalculator.interpolate`` on the GPU and on the CPU: equal within
-    rtol 1e-12 in float64; timed.
+    rtol 1e-12 in float64; timed;
+ 19. halo batches over several devices (``parallel/sharded.py``): every
+    local GPU, or two workers on card 0 when there is one card: phase 5's
+    mock through ``ShardedHaloEngine`` bit-equal to ``HaloEngine`` on
+    card 0; two chunks with a satellite, each on its group, bit-equal to
+    each chunk on card 0; phase 11's entry over the list (a warm, a timed
+    and a checked pass holding every K1 and K2 call of every device
+    against its plain version; halos/s beside phase 11's, shares and
+    seconds per worker, peak memory per card; the catalogue bit-equal to
+    phase 11's; with several cards, launches on each); and
+    ``graft_entry.dryrun_multichip`` on the list.
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
-card's nvidia-smi line, and last a JSON object with "ok": true.  Without
-a CUDA device it exits 1 before printing any result.  Imports torch,
-numpy and soap_tpu_torch only.
+card's nvidia-smi line, and last a JSON object with "ok": true.  With
+``--multi-device-only`` it builds the kernels and runs phases 11 and 19
+alone (for a machine with several cards), then prints the last two.
+Without a CUDA device it exits 1 before printing any result.  Imports
+torch, numpy and soap_tpu_torch only.
 """
 
 import dataclasses
@@ -158,12 +171,14 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from soap_tpu_torch import graft_entry
 from soap_tpu_torch.models import halo_slice as hs
 from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
 from soap_tpu_torch.io.finder_readers import vr_groupnr
@@ -175,6 +190,7 @@ from soap_tpu_torch.ops import range_gather as rg
 from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
 from soap_tpu_torch.parallel.domain import peano_decomposition
+from soap_tpu_torch.parallel.sharded import ShardedHaloEngine, device_grid
 from soap_tpu_torch.pipeline import chunks
 from soap_tpu_torch.pipeline.chunks import mock_fields, stage_chunk
 from soap_tpu_torch.pipeline import engine as engine_mod
@@ -548,15 +564,15 @@ def _counters(stats):
                 by_pass=dict(sorted(stats.bucket_calls_by_pass.items())))
 
 
-def engine_case(where, tile_caps=None, enclose_scale=0.3):
-    """Phase 5's run on one device: a 64-halo mock with two satellite
-    subhalos of its biggest halo (they and every fourth halo satellites),
-    coarse particles over a wide mass range (some halos past 1 Mpc),
-    every third input radius shrunk x0.002 (floored at the pass's widest
-    aperture) and every catalogue EncloseRadius understated x0.3 (times
-    ``enclose_scale``), so the truncation misses bound rows of the biggest
-    halos and the bound-count cross-check sends them round the x1.5 retry
-    ladder."""
+def engine_inputs(where, enclose_scale=0.3):
+    """Phase 5's universe and inputs on one device: a 64-halo mock with
+    two satellite subhalos of its biggest halo (they and every fourth
+    halo satellites), coarse particles over a wide mass range (some halos
+    past 1 Mpc), every third input radius shrunk x0.002 (floored at the
+    pass's widest aperture) and every catalogue EncloseRadius understated
+    x0.3 (times ``enclose_scale``), so the truncation misses bound rows of
+    the biggest halos and the bound-count cross-check sends them round
+    the x1.5 retry ladder."""
     uni = build_mock_universe(**ENGINE_MOCK)
     ctx, chunk, args, specs = _bench_inputs(uni, torch.device(where))
     H = len(uni.halo_renclose)
@@ -565,6 +581,12 @@ def engine_case(where, tile_caps=None, enclose_scale=0.3):
         np.arange(H) % 3 == 0, 0.002, 1.0
     )
     args["enclose_radius_phys"] = args["enclose_radius_phys"] * enclose_scale
+    return uni, (ctx, chunk, args, specs)
+
+
+def engine_case(where, tile_caps=None, enclose_scale=0.3):
+    """Phase 5's run on one device (``engine_inputs``)."""
+    uni, (ctx, chunk, args, specs) = engine_inputs(where, enclose_scale)
     rg.launches = il.launches = 0
     eng = HaloEngine(ctx, chunk, specs, where, tile_caps=tile_caps)
     res = eng.process(**args)
@@ -825,41 +847,48 @@ def phase_engine_params(dev):
 class PathCheck:
     """Holds every K1 and K2 call of one engine pass against its plain
     version on the same inputs, right after the call, and records the
-    shapes the path gave each kernel.  It wraps the names the engine calls
-    the wrappers through, so each launch counter still counts only the
-    engine's own launches; the plain versions count none."""
+    shapes the path gave each kernel and the devices it launched on.  It
+    wraps the names the engine calls the wrappers through, so each launch
+    counter still counts only the engine's own launches; the plain
+    versions count none.  The engine's worker threads call it at once."""
 
     def __init__(self):
-        self.k1 = dict(calls=0, max_abs_err=0.0, shapes={})
-        self.k2 = dict(calls=0, max_abs_err=0.0, shapes={})
+        self.k1 = dict(calls=0, max_abs_err=0.0, shapes={}, devices={})
+        self.k2 = dict(calls=0, max_abs_err=0.0, shapes={}, devices={})
+        self._lock = threading.Lock()
 
-    def _note(self, rec, shape, err):
-        rec["calls"] += 1
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+    def _note(self, rec, shape, err, device):
+        with self._lock:
+            rec["calls"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+            rec["devices"][str(device)] = rec["devices"].get(str(device), 0) + 1
 
     def _k1(self, packed, table, S, capacity):
-        n = rg.launches
+        n = rg.launches_here()
         got = self._range_gather(packed, table, S, capacity)
-        if rg.launches == n:  # nothing to gather, no launch
+        if rg.launches_here() == n:  # nothing to gather, no launch
             return got
         ref = rg.range_gather_blocks_plain(packed, table, S, capacity)
         # bit for bit: the store's padding columns hold NaN
         if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError(f"K1 differs from its plain version at {tuple(got.shape)}")
         err = (got - ref).nan_to_num(0.0).abs().max().item() if got.numel() else 0.0
-        self._note(self.k1, "B={} capacity={} F={}".format(*got.shape), err)
+        self._note(self.k1, "B={} capacity={} F={}".format(*got.shape), err, got.device)
         return got
 
     def _k2(self, *args, **kw):
-        n, before = il.launches, dict(il.cluster_launches)
+        by_g = il.cluster_launches_here()
         got = self._inertia_loop(*args, **kw)
-        if il.launches == n:  # no halos, no launch
+        # the cluster size this thread's launch counted under, if any
+        G = [g for g, n in il.cluster_launches_here().items() if n != by_g.get(g, 0)]
+        if not G:  # no halos, no launch
             return got
-        (G,) = (g for g, n in il.cluster_launches.items() if n != before.get(g, 0))
+        (G,) = G
         ref = il.inertia_loop_plain(*args)
         (B, _, K), C = args[0].shape, args[3].shape[1]
-        self._note(self.k2, f"B={B} K={K} C={C} G={G}", k2_err(f"B={B} K={K}", got, ref))
+        self._note(self.k2, f"B={B} K={K} C={C} G={G}", k2_err(f"B={B} K={K}", got, ref),
+                   got.device)
         return got
 
     def __enter__(self):
@@ -1265,9 +1294,10 @@ def phase_entry_chunked(tag, dev, one, timed, serial_pass=True):
     for baseline, records in run["passes"]:
         for i, rec in enumerate(records):
             nxt = records[i + 1].store_bytes if i + 1 < len(records) else 0
-            if rec.memory_after > baseline + nxt:
+            after = rec.memory_after[str(dev)]
+            if after > baseline + nxt:
                 raise AssertionError(
-                    f"{tag}: chunk {rec.chunk_nr} left {rec.memory_after - baseline} bytes "
+                    f"{tag}: chunk {rec.chunk_nr} left {after - baseline} bytes "
                     f"allocated, the next prestaged store is {nxt}")
     records = run["passes"][-1][1]
     n_one = sum(len(p) for p, _ in inputs["host"].values())
@@ -1284,7 +1314,7 @@ def phase_entry_chunked(tag, dev, one, timed, serial_pass=True):
         f"{[round(x, 4) for x in med['engine_seconds']]}; share of read-and-stage hidden "
         f"behind compute (chunks 1 on) {hidden:.4f}; stores "
         f"{[round(r.store_bytes / 2**30, 3) for r in records]} GiB; memory_allocated after "
-        f"each chunk's merge {[round(r.memory_after / 2**30, 3) for r in records]} GiB "
+        f"each chunk's merge {[round(r.memory_after[str(dev)] / 2**30, 3) for r in records]} GiB "
         f"(baseline {run['passes'][-1][0] / 2**30:.3f}); peak {run['peak']:.2f} GiB "
         f"against the one-chunk run's {one['peak']:.2f}; halos/s median "
         f"{np.median(run['rates']):.2f} against {np.median(one['rates']):.2f}")
@@ -1640,6 +1670,147 @@ def phase_xray(dev, uni):
         f"{t_host:.3f} s from and to the host (first call); CPU {t_cpu:.2f} s")
 
 
+def multi_devices():
+    """Phase 19's device list: every local GPU when there are several,
+    else two workers on card 0."""
+    if torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cuda", 0)] * 2
+
+
+def _cards(devices):
+    return list({str(d): d for d in devices}.values())
+
+
+def phase_multi_device(dev, one):
+    """Phase 19: halo batches over ``multi_devices()`` (one worker per
+    entry): (a) phase 5's mock through ``ShardedHaloEngine`` against
+    ``HaloEngine`` on ``dev``, every key bit-equal; (b) two chunks with a
+    satellite, each on its group, against each chunk on ``dev``, bit for
+    bit; (c) phase 11's entry (``one``) over the list: a warm pass, a
+    timed pass (launch counters set to 0 just before it and read just
+    after) and a checked pass (every K1 and K2 call of every device
+    against its plain version), the catalogue bit-equal to phase 11's;
+    (d) ``graft_entry.dryrun_multichip`` on the list."""
+    devices = multi_devices()
+    names = [str(d) for d in devices]
+    if len(_cards(devices)) > 1:
+        say("multi-device", f"{len(devices)} cards: {names}")
+    else:
+        say("multi-device", f"only one card was seen: two workers on it, {names}")
+
+    # (a) phase 5's mock: the split against one device, bit for bit
+    t0 = time.perf_counter()
+    uni, (ctx, chunk, args, specs) = engine_inputs(dev)
+    single = HaloEngine(ctx, chunk, specs, dev)
+    ref = single.process(**args)
+    sharded = ShardedHaloEngine(ctx, [chunk], specs, [devices])
+    got = sharded.process(**{k: [v] for k, v in args.items()})[0]
+    torch.cuda.synchronize()
+    bad = bit_differences(ref, got)
+    st = sharded.stats
+    if bad or _counters(st) != _counters(single.stats):
+        raise AssertionError(f"multi-device (a): {len(bad)} keys not bit-equal {bad[:10]}, "
+                             f"counters {_counters(st)} against {_counters(single.stats)}")
+    say("multi-device", f"(a) phase 5's mock ({uni.n_halos} halos, "
+        f"{sum(len(d) for d in got.values())} keys): ShardedHaloEngine over {names} "
+        f"bit-equal to HaloEngine on {dev}; counters equal {_counters(st)}; shares by worker "
+        f"{dict(sorted(st.shares_by_worker.items()))}, K1 {dict(st.k1_launches_by_ptype)}; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (b) two chunks, each on its group, halo 0 of the first a satellite
+    t0 = time.perf_counter()
+    uni = build_mock_universe(n_halos=10, n_field=6000, boxsize=40.0, seed=3,
+                              mass_range=(3.2, 60.0))
+    ctx, chunk, _, _ = _bench_inputs(uni, dev)
+    specs2 = [s for s in build_specs(None, True, 100.0) if s.group in ("BoundSubhalo",
+                                                                        "SO/200_crit")]
+    parts = np.array_split(np.arange(uni.n_halos), 2)
+    lists = dict(
+        centres=[uni.halo_pos[p] for p in parts],
+        search_radius_phys=[uni.halo_renclose[p] * uni.a * 1.01 for p in parts],
+        index=[p.astype(np.int64) for p in parts],
+        is_central=[np.arange(len(p)) != 0 if c == 0 else np.ones(len(p), bool)
+                    for c, p in enumerate(parts)],
+        fof_id=[p.astype(np.int64) + 1 for p in parts],
+    )
+    two = ShardedHaloEngine(ctx, [chunk, chunk], specs2, device_grid(devices, 2)).process(
+        **lists)
+    for c in range(2):
+        want = HaloEngine(ctx, chunk, specs2, dev).process(**{k: v[c] for k, v in lists.items()})
+        bad = bit_differences(want, two[c])
+        if bad:
+            raise AssertionError(f"multi-device (b): chunk {c} differs from {dev}: {bad[:10]}")
+    if two[0]["SO/200_crit"]["Mtot"][0] != 0 or not two[0]["BoundSubhalo"]["Mtot"][0] > 0:
+        raise AssertionError("multi-device (b): the satellite has an SO mass or no bound mass")
+    say("multi-device", f"(b) two chunks of {[len(p) for p in parts]} halos on groups "
+        f"{[[str(d) for d in g] for g in device_grid(devices, 2)]}: each bit-equal to its chunk "
+        f"on {dev}; the satellite's SO/200_crit zero; {time.perf_counter() - t0:.2f} s")
+
+    # (c) phase 11's entry over the list
+    inputs, H = one["inputs"], one["inputs"]["cat"].nr_halos
+    t0 = time.perf_counter()
+    run_entry(inputs, devices)
+    torch.cuda.synchronize()
+    say("multi-device", f"(c) main entry over {names}: warm pass {time.perf_counter() - t0:.2f} s")
+    for d in _cards(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    rg.launches = il.launches = 0
+    il.cluster_launches.clear()
+    hs.k2_launches_by_config.clear()
+    t0 = time.perf_counter()
+    out = run_entry(inputs, devices)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
+    if launches["range_gather"] == 0 or launches["inertia_loop"] == 0:
+        raise AssertionError(f"multi-device (c) path bypassed a kernel: {launches}")
+    # per card, the most allocated in the timed pass, as the chunk loop read it
+    peak = {str(d): round(max(r.peak_memory[str(d)] for r in out.chunks) / 2**30, 2)
+            for d in _cards(devices)}
+    want, cat = one["out"].catalogue, out.catalogue
+    bad = [p for p, ds in want.datasets.items()
+           if p not in cat.datasets or not _bit_equal(ds.data, cat.datasets[p].data)]
+    diffs = catalogue_differences(want, cat)
+    if bad or diffs or set(cat.datasets) != set(want.datasets):
+        raise AssertionError(f"multi-device (c): catalogue differs from phase 11's: "
+                             f"{bad[:10]} {diffs[:10]}")
+    st = out.stats
+    with PathCheck() as check:
+        run_entry(inputs, devices)
+        torch.cuda.synchronize()
+    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
+        raise AssertionError(f"multi-device (c) checked pass made {check.k1['calls']} K1 and "
+                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    on_devices = sorted(set(check.k1["devices"]) | set(check.k2["devices"]))
+    if len(_cards(devices)) > 1 and on_devices != sorted(str(d) for d in _cards(devices)):
+        raise AssertionError(f"multi-device (c): kernels launched on {on_devices} only")
+    say("multi-device", f"(c) main entry over {names}: {H} halos in one timed pass "
+        f"{dt:.4f} s, {H / dt:.2f} halos/s against phase 11's median "
+        f"{np.median(one['rates']):.2f} ({H / dt / np.median(one['rates']):.3f}x); engine "
+        f"{out.engine_seconds:.4f} s (phase 11 {one['out'].engine_seconds:.4f}); shares by worker "
+        f"{dict(sorted(st.shares_by_worker.items()))}, seconds by worker "
+        f"{ {k: round(v, 4) for k, v in sorted(st.worker_seconds.items())} }; tiles "
+        f"{st.n_bucket_calls}; peak device memory per card {peak} GiB (phase 11 "
+        f"{one['peak']:.2f}); launches {launches}; catalogue bit-equal to phase 11's "
+        f"({len(cat.datasets)} datasets)")
+    say("multi-device", f"(c) checked pass, every call against its plain version: K1 "
+        f"bit-equal, {check.k1['calls']} calls by device {check.k1['devices']}; K2 within "
+        f"rtol {K2_RTOL}, {check.k2['calls']} calls by device {check.k2['devices']} (max abs "
+        f"err {check.k2['max_abs_err']:.3e})"
+        + ("" if len(_cards(devices)) > 1 else "; only one card was seen, so no launch on "
+           "cuda:1 (the device guard is not exercised)"))
+
+    # (d) the graft entry's dry run on the list
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(devices)
+    say("multi-device", f"(d) dryrun_multichip on {names}: seconds "
+        f"{ {k: round(v, 4) for k, v in dry['seconds'].items()} }; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dict(launches=launches, check={"range_gather": check.k1, "inertia_loop": check.k2},
+                out=out)
+
+
 def phase_profile(dev, tag, inputs):
     """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
@@ -1683,6 +1854,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    if "--multi-device-only" in sys.argv[1:]:
+        phase_multi_device(dev, phase_entry_main(dev, build_mock_universe(**BENCH)))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     k1 = {cell[0]: phase_k1(dev, cell) for cell in K1_CELLS}
     k2 = phase_k2(dev)
     phase_engine(dev)
@@ -1709,6 +1887,7 @@ def main():
     finder_runs = phase_finders(dev, main_entry_run)
     finders_chunked_run = phase_finders_chunked(dev)
     phase_xray(dev, hydro_uni)
+    multi_run = phase_multi_device(dev, main_entry_run)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])
@@ -1735,7 +1914,8 @@ def main():
             "main-entry-chunked": main_chunked_run,
             "flamingo-entry-chunked": flamingo_chunked_run,
             "flamingo-nu-entry": nu_entry_run,
-            **{f"{f}-entry": r for f, r in finder_runs.items()}}
+            **{f"{f}-entry": r for f, r in finder_runs.items()},
+            "multi-device-entry": multi_run}
 
     def summary(check):
         """A checked pass in brief: calls, max abs error, and the range of
@@ -1746,7 +1926,8 @@ def main():
         bs = [int(d["B"]) for d in dims]
         return dict(calls=check["calls"], max_abs_err=check["max_abs_err"],
                     distinct_shapes=len(dims), B=[min(bs, default=0), max(bs, default=0)],
-                    rows=[min(rows, default=0), max(rows, default=0)])
+                    rows=[min(rows, default=0), max(rows, default=0)],
+                    devices=check["devices"])
 
     def path(name):
         return dict(launches=main_run["launches"][name],
@@ -1763,6 +1944,7 @@ def main():
                     **{f"{FINDER_KEYS[f]}_entry_path_launches": r["launches"][name]
                        for f, r in finder_runs.items()},
                     finders_chunked_path_launches=finders_chunked_run["launches"][name],
+                    multi_device_entry_path_launches=multi_run["launches"][name],
                     path_checks={t: summary(r["check"][name]) for t, r in runs.items()})
 
     kernels = [

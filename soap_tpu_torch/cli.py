@@ -15,7 +15,9 @@ or, without a parameter file, with direct paths:
         --membership mem.hdf5 --halo-basename SubSnap_077 --output out.hdf5
 
 ``halo-properties`` and ``recalculate-xrays`` run on ``--device``
-(``cuda`` unless asked for another).  What the JAX package switches with
+(``cuda``, the current card, unless asked for another); for
+``halo-properties`` it may be a comma-separated list, over which each
+chunk's halo batches are split.  What the JAX package switches with
 environment variables is a flag here: ``--no-prefetch`` turns the chunk
 loop's read-ahead staging off, ``--io-processes`` reads the snapshot
 over worker processes, and ``--batch-rows`` sets the membership join's
@@ -149,7 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="write a <name>_time dataset next to every property (one device "
         "program per calculation, slower: profiling only)",
     )
-    hp.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    hp.add_argument(
+        "--device", default="cuda",
+        help="torch device, or comma-separated devices to split the halo batches over "
+        "(default cuda: the current card)",
+    )
     hp.add_argument("--no-prefetch", dest="prefetch", action="store_false",
                     help="stage each chunk after the last one finishes, not ahead of it")
     hp.add_argument("--io-processes", type=int, default=0,
@@ -195,7 +201,8 @@ def halo_properties_kwargs(args) -> Dict[str, object]:
         fof_filename=fof_group,
         record_halo_timings=args.record_halo_timings,
         record_property_timings=args.record_property_timings,
-        device=args.device,
+        # one device, or a list of them (parallel/sharded.py::local_devices)
+        device=args.device.split(",") if "," in args.device else args.device,
         prefetch=args.prefetch,
         io_processes=args.io_processes,
     )
@@ -276,7 +283,8 @@ def main(argv: Optional[list] = None) -> int:
             print(f"wrote {args.output_parameters}")
         return 0
     if args.profile:
-        _profiled(lambda: compute_halo_properties(**kwargs), args.device, PROFILE_DIR)
+        _profiled(lambda: compute_halo_properties(**kwargs), args.device.split(",")[0],
+                  PROFILE_DIR)
     else:
         compute_halo_properties(**kwargs)
     return 0

@@ -443,7 +443,7 @@ inertia_loop_kernel(const float* __restrict__ pos3, const float* __restrict__ w,
 
 }  // namespace
 
-extern "C" int inertia_loop_f32(const float* pos3, const float* w, const int* mw,
+extern "C" int inertia_loop_f32(int device, const float* pos3, const float* w, const int* mw,
                                 const float* R, const int* reduced, const int* limit,
                                 const int* occ, const int* done0, const float* table,
                                 int B, int K, int W, int C, int max_iterations, int G,
@@ -452,7 +452,11 @@ extern "C" int inertia_loop_f32(const float* pos3, const float* w, const int* mw
   const size_t smem = sizeof(float) * (size_t)kStages * kPlanes * tile +
                       sizeof(double) * 7 * (size_t)C +
                       sizeof(float) * ((size_t)n_table + (19 + 1 + 2 * kPub) * (size_t)C + 2);
-  cudaError_t err = cudaFuncSetAttribute(
+  // the attributes, the occupancy query and the launch act on the
+  // current device: make it the tensors' own
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
       inertia_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(inertia_loop_kernel,

@@ -50,9 +50,13 @@ range_gather_kernel(const float4* __restrict__ packed, long long n_rows,
 
 }  // namespace
 
-extern "C" int range_gather_f32(const float* packed, long long n_rows, int F,
+extern "C" int range_gather_f32(int device, const float* packed, long long n_rows, int F,
                                 const int* table, int B, int R, int S,
                                 float* out, void* stream) {
+  // the stream and the tensors belong to `device`, which need not be
+  // the calling thread's current one
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(B, (R + kBlocksPerCta - 1) / kBlocksPerCta);
   range_gather_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(packed), n_rows, F / 4, table, R, S,

@@ -31,6 +31,7 @@ from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.models.lazy import lazy_property
 from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as inertia_loop_ops
+from soap_tpu_torch.ops import kernel_lib
 from soap_tpu_torch.ops import kinematics as kin
 from soap_tpu_torch.ops import radii as radii_ops
 from soap_tpu_torch.ops import reductions as red
@@ -121,10 +122,11 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 def _count_launches(fn):
-    """Run ``fn`` and attribute the inertia-loop launches it made."""
-    n = inertia_loop_ops.launches
+    """Run ``fn`` and attribute the inertia-loop launches it made (in
+    this thread)."""
+    n = inertia_loop_ops.launches_here()
     out = fn()
-    return out, inertia_loop_ops.launches - n
+    return out, inertia_loop_ops.launches_here() - n
 
 
 def _star_sort(parts: HaloParticles, r, bound, lo4: int, hi4: int):
@@ -649,8 +651,9 @@ class HaloSlice(ChemistryMixin):
                 self._m_sorted, self._pos_sorted, masks, sphere, *flags, **kw
             ))
             labels = tuple(dict.fromkeys(r[0][0] for r in reqs))
-        for label in labels if n else ():
-            k2_launches_by_config[label] = k2_launches_by_config.get(label, 0) + n
+        with kernel_lib.COUNT_LOCK:
+            for label in labels if n else ():
+                k2_launches_by_config[label] = k2_launches_by_config.get(label, 0) + n
         return result, search is not None
 
     @lazy_property

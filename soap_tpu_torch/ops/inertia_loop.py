@@ -157,10 +157,33 @@ def inertia_loop_plain(
     return (ten, iterations) if count_iterations else ten
 
 
-#: launches of the K2 CUDA kernel (incremented only where it launches)
+#: launches of the K2 CUDA kernel, from every thread (incremented only
+#: where it launches, under ``kernel_lib.COUNT_LOCK``)
 launches = 0
 #: those launches by cluster size G
 cluster_launches: Dict[int, int] = {}
+_here = kernel_lib.ThreadCount()
+
+
+def launches_here() -> int:
+    """The K2 launches the calling thread made."""
+    return _here.n
+
+
+def cluster_launches_here() -> Dict[int, int]:
+    """The calling thread's K2 launches by cluster size G."""
+    return dict(_here.by)
+
+
+def _count_launch(G: int) -> None:
+    """One K2 launch in clusters of G CTAs, in the totals and in the
+    calling thread's count."""
+    global launches
+    with kernel_lib.COUNT_LOCK:
+        launches += 1
+        cluster_launches[G] = cluster_launches.get(G, 0) + 1
+    _here.n += 1
+    _here.by[G] = _here.by.get(G, 0) + 1
 
 
 def cluster_size(B: int, K: int, n_sm: int) -> int:
@@ -261,20 +284,23 @@ def inertia_loop(
     table, T = radius_table(pos3, rows_radius_sorted)
     G = cluster_size(B, K, _sm_count(dev))
     tile = TILE_ROWS if G == 1 else CLUSTER_TILE_ROWS
-    global launches
     lib = kernel_lib.load("inertia_loop")
     fn = lib.inertia_loop_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    rc = fn(
-        pos3.data_ptr(), w.data_ptr(), mw.data_ptr(), R.data_ptr(),
-        reduced.data_ptr(), limit.data_ptr(), occ.data_ptr(), done0.data_ptr(),
-        table.data_ptr(), B, K, W, C, int(max_iterations), G, tile, T, table.shape[1],
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     )
+    fn.restype = ctypes.c_int
+    # on the tensors' device, whichever is current in this thread (see
+    # ops/range_gather.py::range_gather_blocks)
+    with torch.cuda.device(dev):
+        rc = fn(
+            dev.index, pos3.data_ptr(), w.data_ptr(), mw.data_ptr(), R.data_ptr(),
+            reduced.data_ptr(), limit.data_ptr(), occ.data_ptr(), done0.data_ptr(),
+            table.data_ptr(), B, K, W, C, int(max_iterations), G, tile, T, table.shape[1],
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc == _NO_CLUSTER:
         raise RuntimeError(f"inertia_loop_f32: the card cannot place a cluster of {G} CTAs")
     kernel_lib.check(rc, "inertia_loop_f32")
-    launches += 1
-    cluster_launches[G] = cluster_launches.get(G, 0) + 1
+    _count_launch(G)
     return out

@@ -29,6 +29,11 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: guards the module-level launch counters (``range_gather.launches``,
+#: ``inertia_loop.launches`` and ``cluster_launches``,
+#: ``models/halo_slice.py::k2_launches_by_config``): the worker threads
+#: of a multi-device engine launch at once
+COUNT_LOCK = threading.Lock()
 #: seconds spent in nvcc by this process, per library
 BUILD_SECONDS: Dict[str, float] = {}
 
@@ -70,6 +75,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+class ThreadCount(threading.local):
+    """One count per thread: the launches the calling thread made (``n``,
+    which the engine attributes to a particle type or a family), and
+    those by a kernel's launch shape (``by``)."""
+
+    def __init__(self):
+        self.n = 0
+        self.by: Dict[int, int] = {}
 
 
 def check(rc: int, what: str) -> None:

@@ -156,8 +156,23 @@ def range_gather_blocks_plain(
     return packed[src.reshape(table.shape[0], capacity)]
 
 
-#: launches of the K1 CUDA kernel (incremented only where it launches)
+#: launches of the K1 CUDA kernel, from every thread (incremented only
+#: where it launches, under ``kernel_lib.COUNT_LOCK``)
 launches = 0
+_here = kernel_lib.ThreadCount()
+
+
+def launches_here() -> int:
+    """The K1 launches the calling thread made."""
+    return _here.n
+
+
+def _count_launch() -> None:
+    """One K1 launch, in the total and in the calling thread's count."""
+    global launches
+    with kernel_lib.COUNT_LOCK:
+        launches += 1
+    _here.n += 1
 
 
 def range_gather_blocks(
@@ -193,21 +208,24 @@ def range_gather_blocks(
     out = torch.empty((B, capacity, F), dtype=torch.float32, device=packed.device)
     if B == 0 or R == 0:
         return out
-    global launches
     lib = kernel_lib.load("range_gather")
     fn = lib.range_gather_f32
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    rc = fn(
-        packed.data_ptr(), N, F, table.data_ptr(), B, R, S,
-        out.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
-    )
+    # the library sets the device it is given, the tensors' own, which
+    # need not be this thread's current one; the guard gives PyTorch's
+    # current device back afterwards
+    with torch.cuda.device(packed.device):
+        rc = fn(
+            packed.device.index, packed.data_ptr(), N, F, table.data_ptr(), B, R, S,
+            out.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
+        )
     kernel_lib.check(rc, "range_gather_f32")
-    launches += 1
+    _count_launch()
     return out
 
 

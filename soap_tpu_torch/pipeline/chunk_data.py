@@ -6,14 +6,15 @@ particle type, packed as one (N, F) f32 row block: ``pos_hi`` | ``pos_lo``
 columns (the layout of ``soap_tpu.pipeline.chunk_data.stage_ptype``, so
 the range gather's rows are bit-equal to the JAX package's).  Summed-area
 tables over per-cell counts and masses size every halo's candidate set
-before any particle moves.
+before any particle moves.  ``adopt`` readies a store staged or copied
+on another CUDA stream for the current one.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -411,3 +412,22 @@ def presize_and_count(
     rt = torch.minimum(radius_trunc, radius)
     counts_b = tuple(count_candidates(chunk.ptypes[pt], centre_hi, rt) for pt in ptypes)
     return radius, counts, counts_b
+
+
+def chunk_tensors(chunk: ChunkData) -> List[torch.Tensor]:
+    """Every device tensor of a staged chunk."""
+    return [t for pt in chunk.ptypes.values()
+            for t in (pt.packed, pt.offsets, pt.counts, pt.sat, pt.mass_sat)]
+
+
+def adopt(chunk: ChunkData, ready: Optional[torch.cuda.Event], device: torch.device) -> None:
+    """Make a prestaged store safe on the current stream: wait for its
+    event, and record the stream on every tensor, so that the caching
+    allocator does not hand a block to the next prestage while this
+    stream's kernels still read it."""
+    if ready is None:
+        return
+    current = torch.cuda.current_stream(device)
+    current.wait_event(ready)
+    for t in chunk_tensors(chunk):
+        t.record_stream(current)

@@ -13,7 +13,8 @@ snapshot and its membership file (serially, or over worker processes),
 h5py).  ``stage_chunk`` stages a chunk on a device; ``prestage`` does
 so from pinned host buffers on a side CUDA stream, in the read-ahead
 thread.  ``process_chunks`` runs the engine chunk after chunk with
-scratch files, restart and read-ahead.
+scratch files, restart and read-ahead, each chunk's halo batches over
+every device of its list (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,7 +34,8 @@ from soap_tpu_torch.io import swift_snapshot
 from soap_tpu_torch.io.reader_pool import ChunkPrefetcher, read_masked_cells_parallel
 from soap_tpu_torch.parallel.domain import peano_decomposition
 from soap_tpu_torch.parallel.multihost import VERSION_ATTR
-from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
+from soap_tpu_torch.parallel.sharded import local_devices, replicate
+from soap_tpu_torch.pipeline.chunk_data import ChunkData, adopt, chunk_tensors, stage_ptype
 from soap_tpu_torch.pipeline.engine import (
     READ_RADIUS_FACTOR, EngineStats, HaloEngine, min_physical_radius,
 )
@@ -249,12 +251,6 @@ def stage_chunk(host: HostFields, boxsize: float, device: torch.device,
     )
 
 
-def chunk_tensors(chunk: ChunkData) -> List[torch.Tensor]:
-    """Every device tensor of a staged chunk."""
-    return [t for pt in chunk.ptypes.values()
-            for t in (pt.packed, pt.offsets, pt.counts, pt.sat, pt.mass_sat)]
-
-
 def store_bytes(chunk: ChunkData) -> int:
     """Device bytes a staged chunk holds, in the caching allocator's
     512-byte blocks."""
@@ -278,19 +274,6 @@ def prestage(host: HostFields, boxsize: float, device: torch.device
         ready.record(stream)
     ready.synchronize()
     return chunk, ready
-
-
-def adopt(chunk: ChunkData, ready: Optional[torch.cuda.Event], device: torch.device) -> None:
-    """Make a prestaged store safe on the current stream: wait for its
-    event, and record the stream on every tensor, so that the caching
-    allocator does not hand a block to the next prestage while this
-    stream's kernels still read it."""
-    if ready is None:
-        return
-    current = torch.cuda.current_stream(device)
-    current.wait_event(ready)
-    for t in chunk_tensors(chunk):
-        t.record_stream(current)
 
 
 # ----------------------------------------------------------------------
@@ -355,12 +338,14 @@ def write_scratch(path: str, specs, rows: np.ndarray,
 @dataclass
 class ChunkRecord:
     """One chunk of a run: its halos and staged particles, the seconds
-    its read and staging took in the thread that ran them, the seconds
-    the loop waited for them, the engine's seconds, its store's bytes
-    (``store_bytes``), and the device memory allocated after it was
+    its read, staging and replication took in the thread that ran them,
+    the seconds the loop waited for them, the engine's seconds, its
+    store's bytes (``store_bytes``, one device's copy), and per CUDA
+    device (by name, none on the CPU) the memory allocated after it was
     merged and freed, read once the next chunk's store was taken (no
-    read in flight then) or after the loop (0 on the CPU).  A chunk
-    restored from scratch has only its halos."""
+    read in flight then) or after the loop, and the most allocated so
+    far (since the caller last reset the peak), read when its engine
+    finished.  A chunk restored from scratch has only its halos."""
 
     chunk_nr: int
     halos: int
@@ -369,7 +354,8 @@ class ChunkRecord:
     wait_seconds: float = 0.0
     engine_seconds: float = 0.0
     store_bytes: int = 0
-    memory_after: int = 0
+    memory_after: Dict[str, int] = field(default_factory=dict)
+    peak_memory: Dict[str, int] = field(default_factory=dict)
     from_scratch: bool = False
 
 
@@ -392,18 +378,26 @@ def process_chunks(
     ``{group: {key: (H, ...)}}``, the summed engine counters and one
     ``ChunkRecord`` per chunk.
 
+    ``device`` is resolved by ``parallel/sharded.py::local_devices`` (one
+    device, or a list): over a list each chunk's
+    store is staged on the first device and replicated on the others,
+    and its halo batches split over all of them (``HaloEngine``).
+
     Halos are split into ``nr_chunks`` Peano–Hilbert chunks (one chunk:
     all of them), run in chunk order (only ``chunk_subset``'s, for a
     host of a multi-host run), empty chunks skipped.  With
     ``scratch_dir`` each chunk's results go to a scratch file, and a
     valid one (same calculations and rows) is reused instead of
     computed.  With ``prefetch`` and more than one chunk to compute, one
-    thread reads chunk N+1 and stages it on the device (``prestage``)
-    while the engine computes chunk N (the first chunk is read here); an
-    error there is raised here, and the chunk is not read again.  Each
-    chunk's store and engine are dropped once its results are merged:
-    the device holds at most two stores and one bucket."""
-    device = torch.device(device)
+    thread reads chunk N+1, stages it on the first device (``prestage``)
+    and replicates it while the engine computes chunk N (the first chunk
+    is read here); an error there is raised here, and the chunk is not
+    read again.  Each chunk's stores and engine are dropped once its
+    results are merged: each device holds at most two stores and one
+    bucket per worker."""
+    devices = local_devices(device)
+    device = devices[0]
+    cards = list({str(d): d for d in devices if d.type == "cuda"}.values())
     t_start = time.perf_counter()
     H = cat.nr_halos
     chunk_of = (
@@ -432,11 +426,12 @@ def process_chunks(
                 chunk, ready = stage_chunk(host, ctx.boxsize, device), None
                 if device.type == "cuda":  # staged, not only queued
                     torch.cuda.current_stream(device).synchronize()
+            stores, events = replicate(chunk, devices, ready)
             n = sum(len(pos) for pos, _ in host.values())
-            return chunk, ready, n, time.perf_counter() - t0
+            return stores, events, n, time.perf_counter() - t0
 
     def allocated():
-        return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        return {str(d): torch.cuda.memory_allocated(d) for d in cards}
 
     prefetcher = ChunkPrefetcher(enabled=prefetch and len(to_compute) > 1)
     total = EngineStats()
@@ -454,11 +449,12 @@ def process_chunks(
                               f"restart, {len(rows)} halos from scratch")
             else:
                 t0 = time.perf_counter()
-                chunk, ready, rec.particles, rec.read_seconds = prefetcher.take(
+                stores, events, rec.particles, rec.read_seconds = prefetcher.take(
                     c, lambda: load(rows, False))
-                adopt(chunk, ready, device)
+                for i, dev in enumerate(devices):  # no name outlives the stores
+                    adopt(stores[i], events[i], dev)
                 rec.wait_seconds = time.perf_counter() - t0
-                rec.store_bytes = store_bytes(chunk)
+                rec.store_bytes = store_bytes(stores[0])
                 if last is not None:
                     # no read in flight now: the last chunk's store and
                     # engine must be gone, this one's store alone added
@@ -469,7 +465,7 @@ def process_chunks(
                 for nc, nrows in to_compute[k + 1 : k + 2]:
                     prefetcher.submit(nc, lambda r=nrows: load(r, True))
                 t1 = time.perf_counter()
-                engine = HaloEngine(ctx, chunk, specs, device,
+                engine = HaloEngine(ctx, stores, specs, devices,
                                     record_halo_timings=record_halo_timings,
                                     record_spec_timings=record_property_timings)
                 results = engine.process(
@@ -482,9 +478,10 @@ def process_chunks(
                     enclose_radius_phys=cat.search_radius[rows] * ctx.a,
                 )
                 rec.engine_seconds = time.perf_counter() - t1
+                rec.peak_memory = {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
                 engine.stats.process_seconds = rec.engine_seconds
                 total.add(engine.stats)
-                del engine, chunk, ready
+                del engine, stores, events
                 last = rec
                 if scratch_dir:
                     write_scratch(scratch_path(scratch_dir, c), specs, rows, results)

@@ -1,6 +1,6 @@
-"""Halo-batch processing engine on one device.
+"""Halo-batch processing engine on one device or several.
 
-Ported from ``soap_tpu/pipeline/engine.py`` (single chunk, one device):
+Ported from ``soap_tpu/pipeline/engine.py`` (single chunk):
  1. a counting pre-pass grows each halo's gather radius to its SO
     threshold and counts its candidate rows exactly with summed-area
     tables (``chunk_data.presize_and_count``);
@@ -33,14 +33,22 @@ Around that core, as in the JAX engine:
    inside max(EncloseRadius, largest aperture), with a bound-count
    cross-check that retries untruncated where the catalogue lied;
  - where every halo of a tile lies inside the next-smaller aperture, an
-   aperture's keys are copied from it instead of computed.
+   aperture's keys are copied from it instead of computed;
+ - on several devices (the chunk store replicated on each, as the JAX
+   engine runs under its ``(1, n)`` mesh) the host plans every tile as
+   on one, then splits its halos into one contiguous share per device
+   (``tile_shares``); the shares run at once, one thread per device,
+   and the host joins them in halo order before it resolves copies and
+   retries, so the results equal the one-device engine's bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -95,6 +103,11 @@ GATHER_S = 64
 WIDE_RADIUS_MPC = 0.4
 #: the staged fields a truncated bucket can carry as sort payloads
 _BASE_FIELDS = {"Masses", "Velocities", "GroupNr_bound", "FOFGroupIDs"}
+#: (dtype, value of a padding lane) of a bucket's per-halo inputs: the
+#: centre's high and low parts, the comoving gather radius, catalogue
+#: index, physical search radius, centrality and FOF id
+_PADDING = ((np.float32, 0.0), (np.float32, 0.0), (np.float32, 1e-3), (np.int64, -1),
+            (np.float32, 1e-3), (np.bool_, False), (np.int64, -1))
 
 
 @dataclass(frozen=True)
@@ -354,12 +367,11 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                     s.__dict__["_proj_sort"] = tuple(_lanes(t, L) for t in one._proj_sort)
             else:
                 s.__dict__.update({k: _lanes(v, L) for k, v in shr.items()})
-            n_k2 = inertia_loop.launches
+            n_k2 = inertia_loop.launches_here()
             res = compute_properties(s, spec0.keys)
-            if k2_by_group is not None and inertia_loop.launches > n_k2:
-                k2_by_group[spec0.group] = (
-                    k2_by_group.get(spec0.group, 0) + inertia_loop.launches - n_k2
-                )
+            n_k2 = inertia_loop.launches_here() - n_k2
+            if k2_by_group is not None and n_k2:
+                k2_by_group[spec0.group] = k2_by_group.get(spec0.group, 0) + n_k2
             B = scalars.index.shape[0]
             for i, spec in enumerate(members):
                 r = {k: v[i * B : (i + 1) * B] for k, v in res.items()}
@@ -402,10 +414,12 @@ def _process_bucket(
             pt.spec, pt.offsets, pt.counts, centre_hi, radius_com, cube
         )
         starts, counts = merge_adjacent_ranges(starts, counts)
-        n_k1 = range_gather.launches
+        n_k1 = range_gather.launches_here()
         gf, valid, _, total = range_gather_rows(pt.packed, starts, counts, S, cap)
         if k1_by_ptype is not None:
-            k1_by_ptype[ptype] = k1_by_ptype.get(ptype, 0) + range_gather.launches - n_k1
+            k1_by_ptype[ptype] = (
+                k1_by_ptype.get(ptype, 0) + range_gather.launches_here() - n_k1
+            )
         overflow = overflow | (total > cap)
 
         def fld(name):
@@ -484,6 +498,22 @@ def _next_pow2(n: int, floor: int = 256) -> int:
     return max(floor, 1 << int(math.ceil(math.log2(max(n, 1)))))
 
 
+def tile_shares(n: int, n_workers: int, floor: int) -> List[Tuple[int, int, int, int]]:
+    """A tile's ``n`` halos, in plan order, as one contiguous share per
+    worker (the first ``n % n_workers`` shares one halo larger), each
+    padded to a power of two at the tile's lane floor: ``(worker, start,
+    stop, padded halos)`` for every share that holds a halo.  One worker,
+    or a one-halo tile, gives the whole tile to worker 0."""
+    q, r = divmod(n, n_workers)
+    shares, start = [], 0
+    for worker in range(n_workers):
+        size = q + (worker < r)
+        if size:
+            shares.append((worker, start, start + size, _next_pow2(size, floor)))
+        start += size
+    return shares
+
+
 def _quantize_cap(n: int, S: int, floor: int = 128) -> int:
     """Quarter-pow2 row capacity >= n, a multiple of max(128, S)."""
     q = max(128, S)
@@ -550,6 +580,11 @@ class EngineStats:
     #: launches of the inertia-loop kernel (K2) by the first group of
     #: the family (or lone spec) that made them
     k2_launches_by_group: Dict[str, int] = field(default_factory=dict)
+    #: bucket programs (one per tile and worker with halos) by worker,
+    #: as ``"<worker>@<device>"``, and their wall seconds, each from its
+    #: inputs' upload to its results on the host
+    shares_by_worker: Dict[str, int] = field(default_factory=dict)
+    worker_seconds: Dict[str, float] = field(default_factory=dict)
     #: wall seconds from each bucket's dispatch to its results on the
     #: host (device compute + transfers), summed
     compute_seconds: float = 0.0
@@ -605,7 +640,15 @@ class EngineStats:
 
 
 class HaloEngine:
-    """Bucketed halo-property engine over one chunk on one device.
+    """Bucketed halo-property engine over one chunk on one device or
+    several.
+
+    ``device`` is one device or a list of them, one worker each (a
+    device may repeat: two workers on one card).  ``chunk`` is one store,
+    which every worker shares (all on its device), or a list of one
+    store per worker (``parallel/sharded.py::replicate``'s).  The host
+    plans each tile on the first device and splits it over the workers
+    (``tile_shares``); a worker's error is raised here.
 
     ``tile_caps`` = (padded rows, halos) per bucket replaces the port's
     byte-sized row budget and batch cap, for instance with the JAX
@@ -625,30 +668,38 @@ class HaloEngine:
     def __init__(
         self,
         ctx_base: HaloContext,
-        chunk: ChunkData,
+        chunk,
         specs: Sequence[HaloTypeSpec],
         device,
         tile_caps: Optional[Tuple[int, int]] = None,
         record_halo_timings: bool = False,
         record_spec_timings: bool = False,
     ):
-        self.device = torch.device(device)
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        if not devices:
+            raise ValueError("HaloEngine needs at least one device")
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.tile_caps = tile_caps
         self.record_halo_timings = record_halo_timings
         self.record_spec_timings = record_spec_timings
-        for pt in chunk.ptypes.values():
-            if pt.packed.device.type != self.device.type:
-                raise ValueError(
-                    f"chunk store on {pt.packed.device}, engine on {self.device}"
-                )
+        chunks = [chunk] * len(self.devices) if isinstance(chunk, ChunkData) else list(chunk)
+        if len(chunks) != len(self.devices):
+            raise ValueError(f"{len(chunks)} chunk stores for {len(self.devices)} workers")
+        for dev, c in zip(self.devices, chunks):
+            for pt in c.ptypes.values():
+                at = pt.packed.device
+                if at.type != dev.type or dev.index not in (None, at.index):
+                    raise ValueError(f"chunk store on {at}, worker on {dev}")
         for spec in specs:
             _check_spec(spec)
-        if self.device.type == "cpu":
+        if any(d.type == "cpu" for d in self.devices):
             # a process's first threaded vector-math call can come back
             # inexact: make the first one on one thread, before any bucket
             cpu_math.prime()
         self.ctx_base = ctx_base
-        self.chunk = chunk
+        self.chunks = chunks
+        self.chunk = chunks[0]
         self.specs = tuple(specs)
         self.stats = EngineStats()
         #: the narrow pass's results, the wide pass's copy sources (set
@@ -766,6 +817,18 @@ class HaloEngine:
 
     def _run(self, centres, search_radius_phys, index, is_central, fof_id,
              enclose, specs, results, H):
+        # the workers keep the calling thread's numpy error rules
+        self._np_err = np.geterr()
+        if len(self.devices) == 1:
+            self._rounds(None, centres, search_radius_phys, index, is_central, fof_id,
+                         enclose, specs, results, H)
+            return
+        with ThreadPoolExecutor(len(self.devices)) as pool:
+            self._rounds(pool, centres, search_radius_phys, index, is_central, fof_id,
+                         enclose, specs, results, H)
+
+    def _rounds(self, pool, centres, search_radius_phys, index, is_central, fof_id,
+                enclose, specs, results, H):
         ctx0 = self.ctx_base
         a = ctx0.a
         radius_phys = np.maximum(
@@ -935,49 +998,42 @@ class HaloEngine:
                     kb = _quantize_cap(int(truncmax[pos - n_sel : pos].max(initial=0)) + 8, 1, 256)
                     if kb < 0.85 * sum(caps):
                         trunc_tile = min(kb, sum(caps))
-                plans.append(dict(sel=sel, B=B, caps=caps, cubes=cubes, S=S,
+                plans.append(dict(sel=sel, bq=bq, caps=caps, cubes=cubes, S=S,
                                   specs=tuple(bucket_specs), trunc=trunc_tile))
 
-            # ---- bucket calls ----
+            # ---- bucket calls: each tile in one contiguous share of its
+            # halos per worker, run at once, joined in halo order ----
             next_pending: List[int] = []
             for pl in plans:
-                B = pl["B"]
                 g = pending[pl["sel"]]
                 nb = len(g)
-                t_chi = np.zeros((B, 3), np.float32)
-                t_clo = np.zeros((B, 3), np.float32)
-                t_rcom = np.full(B, 1e-3, np.float32)
-                t_idx = np.full(B, -1, np.int64)
-                t_srp = np.full(B, 1e-3, np.float32)
-                t_cen = np.zeros(B, bool)
-                t_fof = np.full(B, -1, np.int64)
-                t_chi[:nb] = chi[g]
-                t_clo[:nb] = clo[g]
-                t_rcom[:nb] = rcom[pl["sel"]]
-                t_idx[:nb] = index[g]
-                t_srp[:nb] = radius_phys[g].astype(np.float32)
-                t_cen[:nb] = is_central[g]
-                t_fof[:nb] = fof_id[g]
-
                 t0 = time.perf_counter()
                 ctx = dataclasses.replace(ctx0, capacities=pl["caps"])
-                halo_args = tuple(self._tensor(x) for x in
-                                  (t_chi, t_clo, t_rcom, t_idx, t_srp, t_cen, t_fof))
                 w = totals[pl["sel"]].astype(np.float64) + 1.0
-                if self.record_spec_timings:
-                    out, ov = self._timed_specs(ctx, pl, halo_args, nb, index[g], w)
+                halo_rows = (chi[g], clo[g], rcom[pl["sel"]], index[g],
+                             radius_phys[g].astype(np.float32), is_central[g], fof_id[g])
+                shares = tile_shares(nb, len(self.devices), pl["bq"])
+                jobs = [(worker, ctx, pl, tuple(x[lo:hi] for x in halo_rows), B, w[lo:hi])
+                        for worker, lo, hi, B in shares]
+                if pool is None:  # one worker, one share
+                    done = [self._share(*job) for job in jobs]
                 else:
-                    out, overflow = _process_bucket(
-                        ctx, pl["specs"], pl["cubes"], pl["S"], self.chunk, *halo_args,
-                        pl["trunc"], self.stats.k1_launches_by_ptype,
-                        self.stats.k2_launches_by_group,
-                    )
-                    out = _to_host(out, nb)
-                    ov = overflow[:nb].cpu().numpy()
+                    futures = [pool.submit(self._share, *job) for job in jobs]
+                    done = [f.result() for f in futures]
+                if len(done) == 1:  # no copy of a one-device run's thousands of keys
+                    out, ov = done[0][:2]
+                else:
+                    out = {grp: {k: np.concatenate([d[0][grp][k] for d in done]) for k in keys}
+                           for grp, keys in done[0][0].items()}
+                    ov = np.concatenate([d[1] for d in done])
                 dt = time.perf_counter() - t0
                 self.stats.compute_seconds += dt
-                if halo_seconds is not None:
-                    halo_seconds[g] += dt * w / w.sum()
+                for (_, lo, hi, _), (_, _, dt_share, stats) in zip(shares, done):
+                    self.stats.add(stats)
+                    if halo_seconds is not None:
+                        # each share's wall time, over its halos
+                        halo_seconds[g[lo:hi]] += dt_share * w[lo:hi] / w[lo:hi].sum()
+                if halo_nloop is not None:
                     halo_nloop[g] += 1
                 self.stats.n_overflow += int(ov.sum())
                 self.stats.n_bucket_calls += 1
@@ -1037,7 +1093,39 @@ class HaloEngine:
             self.stats.halo_timing_chunks.append(
                 (np.asarray(index, np.int64).copy(), halo_seconds, halo_nloop))
 
-    def _timed_specs(self, ctx, pl, halo_args, nb, index, w):
+    def _share(self, worker, ctx, pl, halo_rows, B, w):
+        """One share of a tile on its worker's device and store, in the
+        calling thread: its halos padded to ``B`` lanes, uploaded, through
+        one bucket program; returns (host results, overflow, wall seconds,
+        the share's ``EngineStats``)."""
+        dev, chunk = self.devices[worker], self.chunks[worker]
+        nb = len(halo_rows[0])
+        stats = EngineStats()
+        guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with guard, np.errstate(**self._np_err):
+            t0 = time.perf_counter()
+            halo_args = []
+            for x, (dtype, pad) in zip(halo_rows, _PADDING):
+                t = np.full((B,) + x.shape[1:], pad, dtype)
+                t[:nb] = x
+                halo_args.append(torch.from_numpy(t).to(dev))
+            if self.record_spec_timings:
+                index = halo_rows[3]  # the share's catalogue indices
+                out, ov = self._timed_specs(stats, chunk, dev, ctx, pl, halo_args, nb, index, w)
+            else:
+                out, overflow = _process_bucket(
+                    ctx, pl["specs"], pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
+                    stats.k1_launches_by_ptype, stats.k2_launches_by_group,
+                )
+                out = _to_host(out, nb)
+                ov = overflow[:nb].cpu().numpy()
+            dt = time.perf_counter() - t0
+        name = f"{worker}@{dev}"
+        stats.shares_by_worker[name] = 1
+        stats.worker_seconds[name] = dt
+        return out, ov, dt, stats
+
+    def _timed_specs(self, stats, chunk, dev, ctx, pl, halo_args, nb, index, w):
         """A bucket with every spec as its own program, each timed to its
         results on the device; returns the host results and overflow."""
         by_group = {s.group: s for s in pl["specs"]}
@@ -1049,14 +1137,14 @@ class HaloEngine:
             tup = (by_group[src], spec) if src in by_group else (spec,)
             t0 = time.perf_counter()
             o, overflow = _process_bucket(
-                ctx, tup, pl["cubes"], pl["S"], self.chunk, *halo_args, pl["trunc"],
-                self.stats.k1_launches_by_ptype, self.stats.k2_launches_by_group,
+                ctx, tup, pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
+                stats.k1_launches_by_ptype, stats.k2_launches_by_group,
             )
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
-            self.stats.spec_seconds[spec.group] = self.stats.spec_seconds.get(spec.group, 0.0) + dt
-            self.stats.spec_halo_chunks.append(
+            stats.spec_seconds[spec.group] = stats.spec_seconds.get(spec.group, 0.0) + dt
+            stats.spec_halo_chunks.append(
                 (spec.group, np.asarray(index, np.int64).copy(), dt * w / w.sum()))
             out[spec.group] = _to_host({spec.group: o[spec.group]}, nb)[spec.group]
         return out, overflow[:nb].cpu().numpy()

@@ -1,7 +1,8 @@
 """The halo-properties entry: inputs in, SOAP catalogue out.
 
-The port's copy of ``soap_tpu/pipeline/run.py``, for one device and the
-five halo finders (``HALO_FORMATS``), in two halves:
+The port's copy of ``soap_tpu/pipeline/run.py``, for the five halo
+finders (``HALO_FORMATS``), on one device or a list of them, in two
+halves:
 
 - ``build_catalogue`` (torch and numpy only; runs on the card): from a
   snapshot-metadata object, a ``HaloCatalogue``, the particle fields
@@ -38,7 +39,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from soap_tpu_torch.core.category_filter import DEFAULT_FILTERS, CategoryFilter
 from soap_tpu_torch.core.cosmology import Cosmology
@@ -499,7 +499,11 @@ def build_catalogue(
     prefetch: bool = True,
     verbose: bool = False,
 ) -> EntryResult:
-    """The in-memory half of the entry, on ``device``.
+    """The in-memory half of the entry, on ``device``: one device
+    (``"cuda"``: the current card), or a list of them (a device may
+    repeat), as ``parallel/sharded.py::local_devices`` reads it.  Over a
+    list each chunk's store is replicated on every device and its halo
+    batches split over them, with results equal to one device's.
 
     ``meta`` is a snapshot-metadata object (``mock_metadata`` or
     ``io/swift_snapshot.py::SnapshotMetadata``), ``cat`` the halo
@@ -529,7 +533,6 @@ def build_catalogue(
     A ``halo_format`` outside ``HALO_FORMATS`` raises ValueError."""
     _check_halo_format(halo_format)
     t_start = time.perf_counter()
-    device = torch.device(device)
     cat = select_halos(cat, halo_indices, centrals_only, max_halos)
 
     # the search radius floor: the parameter file's min_read_radius_cmpc
@@ -752,7 +755,8 @@ def compute_halo_properties(
     prefetch: bool = True,
     io_processes: int = 0,
 ) -> EntryResult:
-    """The file half of the entry: one snapshot on one device.
+    """The file half of the entry: one snapshot, on ``device`` as
+    ``build_catalogue`` takes it (one device, or a list to split over).
 
     Reads the snapshot's metadata (with the membership file as extra
     input) and the catalogue of ``halo_format``, one of ``HALO_FORMATS``
@@ -764,9 +768,9 @@ def compute_halo_properties(
     ``io_processes`` worker processes when more than one) on ``device``,
     with its chunk, scratch, multi-host and timing options; writes
     ``output_file`` and, with a parameter file, ``SOAP.used_parameters.yml``
-    beside it, unless this host did not combine.  A process runs on the
-    one device it is given (halo batches across several GPUs are not
-    ported)."""
+    beside it, unless this host did not combine.  A multi-host run splits
+    the chunks over the hosts, and each host's chunks use all of its
+    ``device``."""
     from soap_tpu_torch.io.catalogue_writer import write_catalogue
     from soap_tpu_torch.io.fof_catalogue import read_fof_groups
     from soap_tpu_torch.io.swift_snapshot import SnapshotMetadata

@@ -106,8 +106,10 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     reader and read-ahead, and the membership program's in-memory join
     (``compute_membership``), importing the finder readers, the command
     line and the X-ray calculator, building each other finder's
-    catalogue from its array half (and Rockstar's from its files) and
-    interpolating a mock X-ray table built in memory, loads no jax,
+    catalogue from its array half (and Rockstar's from its files),
+    interpolating a mock X-ray table built in memory, importing the
+    multi-device module and the graft entry, running the graft entry's
+    halo function and the chunk loop over two CPU workers, loads no jax,
     soap_tpu, h5py or yaml; the import primes the CPU math library."""
     code = (
         "import sys\n"
@@ -178,6 +180,12 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "lum = calc.interpolate(np.full(4, 1e-26), np.full(4, 1e7), np.full((4, 9), 0.01),\n"
         "                       np.full(4, 1e39), ['ROSAT'], ['photons_observed'])\n"
         "assert lum.shape == (4, 1) and (lum > 0).all()\n"
+        # halo batches over several devices, and the graft entry
+        "import soap_tpu_torch.parallel.sharded, soap_tpu_torch.graft_entry\n"
+        "fn, (parts, scalars) = soap_tpu_torch.graft_entry.entry('cpu')\n"
+        "assert 'BoundSubhalo' in fn(parts, scalars)\n"
+        "out = run.build_catalogue(meta, cat, host, specs, device=['cpu', 'cpu'], nr_chunks=2)\n"
+        "assert len(out.chunks) == 2 and out.catalogue.n_halos == 6\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"
