@@ -155,7 +155,18 @@ Phases, each printing its lines and raising on failure:
     against its plain version; halos/s beside phase 11's, shares and
     seconds per worker, peak memory per card; the catalogue bit-equal to
     phase 11's; with several cards, launches on each); and
-    ``graft_entry.dryrun_multichip`` on the list.
+    ``graft_entry.dryrun_multichip`` on the list;
+ 20. the command line's file tools on the card's host (no h5py, no jax):
+    every ``soap_tpu_torch/tools`` module and the parser import, the
+    parser lists the sixteen subcommands, and the tools' array halves run
+    at the earlier phases' sizes, each timed: ``match_sim`` both ways
+    between phase 6's universe and a relabelled copy (the relabelling
+    recovered exactly, every match consistent), the membership label
+    check on phase 16's labels (passes; raises after one corrupted
+    label), the hydrogen fractions of phase 8's gas (in [0, 1], HI + HII
+    + 2 H2 = 1 to 1e-12), ``build_matrix`` on phase 11's inertia tensors
+    (symmetric, round-trips), the timing statistics of phase 13t's
+    catalogue, and both documentation generators (a row per property).
 It then prints the kernels' JSON line (each cell's time beside its
 plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
@@ -167,6 +178,7 @@ torch, numpy and soap_tpu_torch only.
 """
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -178,7 +190,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from soap_tpu_torch import graft_entry
+from soap_tpu_torch import cli, graft_entry
+from soap_tpu_torch.core.registry import full_property_table
 from soap_tpu_torch.models import halo_slice as hs
 from soap_tpu_torch.core.params import ParameterFile, parameter_file_path
 from soap_tpu_torch.io.finder_readers import vr_groupnr
@@ -200,6 +213,8 @@ from soap_tpu_torch.pipeline.run import (
     age_table, build_catalogue, entry_plan, make_context, mock_catalogue, mock_metadata,
 )
 from soap_tpu_torch.pipeline.specs import build_specs, slice_specs
+from soap_tpu_torch.tools import docs, fof_radii, hydrogen_phases, match_membership
+from soap_tpu_torch.tools import membership_checks, timing_analysis
 from soap_tpu_torch.tools import xray_calculator as xc
 from soap_tpu_torch.utils.mock_data import G_INTERNAL as G
 from soap_tpu_torch.utils.mock_data import add_neutrinos, build_mock_universe, snapshot_attrs
@@ -210,7 +225,7 @@ from soap_tpu_torch.utils.parity import (
 
 K2_RTOL = 2e-5  # kernel vs plain loop: tensors, plus atol 1e-7 max|ref|
 TIMED_PASSES = 5  # per engine path
-HYDRO_TIMED_PASSES = 2  # the hydro, COLIBRE and FLAMINGO paths', to fit the run's time limit
+HYDRO_TIMED_PASSES = 1  # the hydro, COLIBRE and FLAMINGO paths', to fit the run's time limit
 CHUNKED_TIMED_PASSES = 3  # the chunked main entry's, to fit the run's time limit
 GIANT_TIMED_PASSES = 3  # the giant path's, cut to fit the run's time limit
 FLAMINGO_CHUNKED_PASSES = 1  # the chunked FLAMINGO entry's, to fit the time limit
@@ -1376,7 +1391,7 @@ def phase_timings_chunked(dev):
         f"n_loop equal (max {int(d['InputHalos/n_loop'].data.max())}); process_time > 0 for "
         f"all; {len(by_group)} groups' _time datasets >= 0, positive sums, equal within "
         f"each spec; launches K1 {n1}, K2 {n2}; CPU run {t1 - t0:.1f} s, GPU {t2 - t1:.1f} s")
-    return dict(launches={"range_gather": n1, "inertia_loop": n2})
+    return dict(launches={"range_gather": n1, "inertia_loop": n2}, catalogue=got.catalogue)
 
 
 def neutrino_oracle(nu, boxsize, a, centres, r_phys):
@@ -1446,7 +1461,8 @@ def phase_membership(uni):
     """Phase 16: ``compute_membership`` on the main universe's IDs in its
     snapshot order (``chunks.mock_fields``'s) against its bound lists:
     GroupNr_bound equal to mock_fields', Rank_bound to each particle's
-    place in its bound list, on the card's host (numpy only)."""
+    place in its bound list, on the card's host (numpy only).  Returns
+    the snapshot IDs, their labels and the bound lists (phase 20)."""
     order = chunks._snapshot_order(np.asarray(uni.pos), uni.boxsize)
     snap_ids = np.asarray(uni.ids)[order]
     meta = mock_metadata(uni)
@@ -1471,6 +1487,8 @@ def phase_membership(uni):
         f"{uni.n_halos} halos in {dt:.3f} s on the host ({len(snap_ids) / dt:.0f} IDs/s): "
         f"GroupNr_bound and Rank_bound equal the mock's labels ({int((grnr >= 0).sum())} "
         f"bound); h5py loaded: {'h5py' in sys.modules}")
+    labels = dict(snap_ids=snap_ids, grnr=grnr, rank=rank, ids_bound=ids_bound,
+                  grnr_bound=grnr_bound, rank_bound=rank_bound)
     # the same bound lists as a VR catalogue holds them: four files, each
     # with offsets local to its own bound IDs, and no rank
     files = []
@@ -1491,6 +1509,7 @@ def phase_membership(uni):
         f"{len(snap_ids)} IDs in {dt:.3f} s ({len(snap_ids) / dt:.0f} IDs/s); GroupNr_bound "
         f"equal to the mock's labels; Rank_bound 0 for all {int(bound.sum())} bound particles "
         f"(VR gives no rank)")
+    return labels
 
 #: phase 17's finders' names in the kernels line
 FINDER_KEYS = {"VR": "vr", "Gadget4": "gadget4", "SubfindEagle": "subfind_eagle",
@@ -1811,6 +1830,161 @@ def phase_multi_device(dev, one):
                 out=out)
 
 
+#: phase 20: the command line's subcommands (the JAX CLI's) and the tool modules
+SUBCOMMANDS = ("halo-properties", "membership", "compress", "extract-filters", "compare",
+               "property-table", "virtual-snapshot", "empty-catalogue", "recalculate-xrays",
+               "convert-eagle", "hydrogen-fractions", "check-membership", "birth-halo-index",
+               "fof-radii", "timing-analysis", "match-halos")
+TOOL_MODULES = ("compare", "compression", "convert_eagle", "docs", "fof_radii",
+                "hydrogen_phases", "match_membership", "membership_checks", "reorder_fof",
+                "timing_analysis", "track_evolution", "virtual_snapshot", "xray_calculator")
+#: phase 20's seed for the relabelled copy of the main universe
+RELABEL_SEED = 14
+
+
+def _relabelled(labels, central, rng):
+    """The bound particles of ``labels`` (phase 16's) as two simulations'
+    ``match_sim`` inputs: the first as they are, catalogue index = row;
+    the second with its rows permuted, new catalogue indices and the
+    particles in reverse order.  Returns (d1, cat1, d2, cat2, perm): row
+    r of the second catalogue is row perm[r] of the first."""
+    bound = labels["grnr"] >= 0
+    d1 = dict(particle_ids=labels["snap_ids"][bound],
+              halo_ids=labels["grnr"][bound].astype(np.int64), rank_bound=labels["rank"][bound])
+    H = len(central)
+    host = np.full(H, -1, np.int64)  # satellites' host rows: none in the main universe
+    cat1 = match_membership.MatchCatalogue(np.arange(H, dtype=np.int64), central, host)
+    perm = rng.permutation(H)
+    new_index = 7 * np.arange(H, dtype=np.int64) + 100_000  # by row of the first
+    d2 = {k: v[::-1] for k, v in d1.items()}
+    d2["halo_ids"] = new_index[d2["halo_ids"]]
+    cat2 = match_membership.MatchCatalogue(new_index[perm], central[perm], host)
+    return d1, cat1, d2, cat2, perm
+
+
+def phase_host_tools(smi, labels, uni, hydro_uni, entry_catalogue, timings_catalogue):
+    """Phase 20: the command line's file tools on the card's host, where
+    there is no h5py and no jax: every tool module and the parser import,
+    and the parser lists the sixteen subcommands; then the tools' array
+    halves at the earlier phases' sizes, each timed: ``match_sim`` both
+    ways between phase 6's universe (phase 16's labels) and a relabelled,
+    reordered copy, recovering the relabelling exactly with every match
+    consistent; the membership label check on phase 16's labels, which
+    passes and raises after one corrupted label; the hydrogen fractions
+    of phase 8's gas (each in [0, 1], HI + HII + 2 H2 = 1 to 1e-12);
+    ``build_matrix`` on phase 11's inertia tensors (symmetric, and
+    flattening back gives the input); the timing statistics and report of
+    phase 13t's catalogue; both documentation generators, one row per
+    property of the table.  Fails if h5py or jax was loaded."""
+    t_start = time.perf_counter()
+    lines = []
+
+    def timed(name, rows, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        lines.append(f"{name} {rows} rows {dt:.4f} s ({rows / dt:.4g} rows/s)")
+        return out
+
+    modules = timed("import", len(TOOL_MODULES), lambda: [
+        importlib.import_module(f"soap_tpu_torch.tools.{m}") for m in TOOL_MODULES])
+    listed = tuple(cli.subcommands(cli.build_parser()))
+    if listed != SUBCOMMANDS:
+        raise AssertionError(f"host-tools: the parser lists {listed}")
+
+    # match_sim both ways against a relabelled copy
+    central = np.asarray(uni.halo_rank) == 0
+    d1, cat1, d2, cat2, perm = _relabelled(labels, central, np.random.default_rng(RELABEL_SEED))
+    n = len(d1["particle_ids"])
+    m12, c12 = timed("match_sim 1->2", n, lambda: match_membership.match_sim(d1, d2, cat1, cat2))
+    m21, c21 = timed("match_sim 2->1", n, lambda: match_membership.match_sim(d2, d1, cat2, cat1))
+    inverse = np.argsort(perm)
+    nbound = np.bincount(d1["halo_ids"], minlength=len(central))
+    if not (np.array_equal(m12[central], inverse[central]) and (m12[~central] == -1).all()
+            and np.array_equal(m21[central[perm]], perm[central[perm]])
+            and np.array_equal(c12[central], np.minimum(50, nbound)[central])):
+        raise AssertionError("host-tools: match_sim did not recover the relabelling")
+    for a, b in ((m12, m21), (m21, m12)):
+        if not match_membership.consistent_match(a, b)[a >= 0].all():
+            raise AssertionError("host-tools: a match is not consistent")
+
+    # the membership label check, and its rejection of a corrupted label
+    args = (labels["snap_ids"], labels["grnr"], labels["rank"], len(central),
+            labels["ids_bound"], labels["grnr_bound"], labels["rank_bound"])
+    stats = timed("check_labels", len(labels["snap_ids"]),
+                  lambda: membership_checks.check_labels(*args))
+    if stats["n_labelled"] != len(labels["ids_bound"]):
+        raise AssertionError(f"host-tools: check_labels counted {stats}")
+    bad = labels["grnr"].copy()
+    row = np.flatnonzero(bad == 1)[0]
+    bad[row] = 2
+    try:
+        membership_checks.check_labels(args[0], bad, *args[2:])
+    except RuntimeError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("host-tools: check_labels passed a corrupted label")
+
+    # the hydrogen fractions of the hydro universe's gas
+    gas = hydro_uni.extra_ptypes["PartType0"]
+    meta = mock_metadata(hydro_uni)
+    hi, hii, h2 = timed("hydrogen_fractions", len(gas["Temperatures"]),
+                        lambda: hydrogen_phases.hydrogen_fractions(
+                            np.asarray(gas["Temperatures"], np.float64),
+                            np.asarray(gas["Densities"], np.float64),
+                            np.asarray(gas["ElementMassFractions"][:, 0], np.float64),
+                            np.asarray(gas["Pressures"], np.float64), meta.snap_units_cgs,
+                            meta.a, meta.z))
+    total = np.abs(hi + hii + 2.0 * h2 - 1.0).max()
+    if not all(((x >= 0) & (x <= 1)).all() for x in (hi, hii, h2)) or not total <= 1e-12:
+        raise AssertionError(f"host-tools: hydrogen fractions outside [0, 1] or off by {total}")
+
+    # build_matrix on the main entry's inertia tensors
+    tensors = [ds.data for path, ds in entry_catalogue.datasets.items()
+               if "InertiaTensor" in path and ds.data.ndim == 2 and ds.data.shape[1] == 6]
+    flat = np.concatenate(tensors)
+    mats = timed("build_matrix", len(flat), lambda: fof_radii.build_matrix(flat))
+    row_i, col_i = np.tril_indices(3)
+    off = row_i != col_i
+    back = np.concatenate([np.diagonal(mats, axis1=1, axis2=2), mats[:, row_i[off], col_i[off]]],
+                          axis=1)
+    if not (np.array_equal(mats, mats.transpose(0, 2, 1)) and np.array_equal(back, flat)):
+        raise AssertionError("host-tools: build_matrix is not symmetric or does not round-trip")
+
+    # the timing statistics and report of phase 13t's catalogue
+    d = timings_catalogue.datasets
+    t_stats = timed("timing_stats", len(d["InputHalos/process_time"].data), lambda: (
+        timing_analysis.timing_stats(d["InputHalos/process_time"].data,
+                                     d["InputHalos/n_loop"].data,
+                                     d["InputHalos/NumberOfBoundParticles"].data),
+        timing_analysis.group_seconds((p, ds.data) for p, ds in d.items())))
+    text = timing_analysis.format_report(*t_stats)
+    if t_stats[0]["n_halos"] != timings_catalogue.n_halos or not t_stats[1]:
+        raise AssertionError(f"host-tools: timing statistics {t_stats}")
+
+    # both documentation generators
+    n_props = len(full_property_table())
+    rst, tex = timed("docs", 2 * n_props, lambda: (docs.generate_rst(), docs.generate_latex()))
+    rows = (sum(line.startswith("   * - ``") for line in rst.splitlines()),
+            sum(line.startswith("\\texttt{") for line in tex.splitlines()))
+    if rows != (n_props, n_props):
+        raise AssertionError(f"host-tools: documentation rows {rows}, the table {n_props}")
+
+    loaded = [m for m in ("h5py", "jax", "yaml") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"host-tools: loaded {loaded}")
+    say("host-tools", f"{len(modules)} tool modules and the parser's {len(listed)} subcommands "
+        f"import without h5py, jax or yaml; match_sim both ways over {n} bound particles of "
+        f"{len(central)} halos recovers the relabelling (counts min(50, Nbound)), every match "
+        f"consistent; check_labels passes {stats} and rejects a corrupted label "
+        f"({rejected!r}); hydrogen fractions of {len(hi)} gas particles in [0, 1], "
+        f"|HI + HII + 2 H2 - 1| <= {total:.3e}; build_matrix on {len(tensors)} inertia tensor "
+        f"datasets ({len(flat)} rows) symmetric and round-trips; timing report of "
+        f"{t_stats[0]['n_halos']} halos, {len(t_stats[1])} groups ({len(text)} characters); "
+        f"docs {rows[0]} rows each; on {smi}; {'; '.join(lines)}; phase "
+        f"{time.perf_counter() - t_start:.2f} s")
+
+
 def phase_profile(dev, tag, inputs):
     """torch.profiler over one pass of a path: device time summed over
     kernel events only (each kernel once), beside unprofiled passes."""
@@ -1883,11 +2057,13 @@ def main():
                                                flamingo_entry_run, FLAMINGO_CHUNKED_PASSES,
                                                serial_pass=False)
     nu_entry_run = phase_entry_neutrinos(dev, hydro_uni)
-    phase_membership(main_uni)
+    labels = phase_membership(main_uni)
     finder_runs = phase_finders(dev, main_entry_run)
     finders_chunked_run = phase_finders_chunked(dev)
     phase_xray(dev, hydro_uni)
     multi_run = phase_multi_device(dev, main_entry_run)
+    phase_host_tools(smi, labels, main_uni, hydro_uni, main_entry_run["out"].catalogue,
+                     timings_run["catalogue"])
     if "--profile" in sys.argv[1:]:
         phase_profile(dev, "main", main_run["inputs"])
         phase_profile(dev, "hydro", hydro_run["inputs"])

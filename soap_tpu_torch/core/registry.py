@@ -1,17 +1,17 @@
 """The property table: per key its output name, dtype, unit and metadata.
 
 A copy of ``soap_tpu/core/property_table.json`` (the reference's
-``full_property_list``) as package data, without its footnotes and
-per-halo shapes: per property key its output dataset name, whether a
-dark-matter-only run computes it (every key a DMO run skips is a hydro
-key), the particle datasets it needs, and what the catalogue writes
-with it: dtype, unit expression over the snapshot's base units,
-a-scale exponent, whether it is stored physical, description and lossy
-compression filter.  ``build_specs`` (with ``by_output_name`` for
-parameter files), ``implemented_keys_for``,
-``pipeline/chunks.py::required_datasets``, the category filters and
-``io/catalogue.py`` read it.  ``tests/test_torch_host_mirror.py`` holds
-the copy to the original.
+``full_property_list``) as package data: per property key its output
+dataset name, per-halo shape, whether a dark-matter-only run computes it
+(every key a DMO run skips is a hydro key), the particle datasets it
+needs, and what the catalogue writes with it: dtype, unit expression
+over the snapshot's base units, a-scale exponent, whether it is stored
+physical, description and lossy compression filter; and the footnotes
+each property's documentation row cites.  ``build_specs`` (with
+``by_output_name`` for parameter files), ``implemented_keys_for``,
+``pipeline/chunks.py::required_datasets``, the category filters,
+``io/catalogue.py`` and the documentation and empty-catalogue tools read
+it.  ``tests/test_torch_host_mirror.py`` holds the copy to the original.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ COMPRESSION_DESCRIPTION = {
 class PropertyDef:
     key: str  # internal name used by the slice classes
     name: str  # dataset name in the output file
+    shape: int  # per-halo shape (1 = scalar, 3 = vector, 6 = symmetric tensor, ...)
     dmo: bool  # computed in dark-matter-only runs?
     particle_properties: Tuple[str, ...]  # "PartTypeN/<dataset>" it reads
     dtype: np.dtype  # stored dtype
@@ -70,6 +71,7 @@ class PropertyTable:
             key: PropertyDef(
                 key=key,
                 name=e["name"],
+                shape=int(e["shape"]),
                 dmo=bool(e["dmo_property"]),
                 particle_properties=tuple(e["particle_properties"]),
                 dtype=np.dtype(_DTYPES[e["dtype"]]),
@@ -90,6 +92,12 @@ class PropertyTable:
     def __contains__(self, key: str) -> bool:
         return key in self._props
 
+    def __len__(self) -> int:
+        return len(self._props)
+
+    def keys(self):
+        return self._props.keys()
+
     def by_output_name(self, name: str) -> PropertyDef:
         """The first property whose output dataset is ``name``."""
         for p in self._props.values():
@@ -99,7 +107,17 @@ class PropertyTable:
 
 
 @lru_cache(maxsize=1)
-def full_property_table() -> PropertyTable:
+def _table_json() -> dict:
     path = resources.files("soap_tpu_torch.core").joinpath("property_table.json")
     with path.open() as f:
-        return PropertyTable(json.load(f))
+        return json.load(f)
+
+
+@lru_cache(maxsize=1)
+def full_property_table() -> PropertyTable:
+    return PropertyTable(_table_json())
+
+
+def footnotes() -> Dict[str, Tuple[str, ...]]:
+    """Footnote file name -> the property keys whose rows cite it."""
+    return {name: tuple(keys) for name, keys in _table_json()["footnotes"].items()}

@@ -3,7 +3,9 @@
 A plain h5py dump of ``io/catalogue.py::make_catalogue``'s result: the
 groups with their attributes, then the datasets with theirs, each in
 the order ``soap_tpu/io/catalogue_writer.py::write_catalogue`` creates
-them.  ``read_catalogue`` reads a catalogue file back.  Both import
+them.  ``read_catalogue`` reads a catalogue file back, and
+``write_property`` writes one property dataset into an open file with
+the attributes ``make_catalogue`` gives it.  The functions import
 ``h5py`` inside, so importing this module loads no h5py.
 """
 
@@ -11,10 +13,13 @@ from __future__ import annotations
 
 import os
 import sys
+from typing import Mapping, Optional
 
 import numpy as np
 
-from soap_tpu_torch.io.catalogue import Catalogue, CatalogueDataset
+from soap_tpu_torch.core.registry import PropertyDef
+from soap_tpu_torch.core.units import UnitRegistry
+from soap_tpu_torch.io.catalogue import Catalogue, CatalogueDataset, property_attributes
 
 
 def _set_attr(group, path: str, key: str, value) -> None:
@@ -65,6 +70,17 @@ def write_catalogue(output_path: str, catalogue: Catalogue) -> None:
             d = f.create_dataset(path, data=ds.data)
             for k, v in ds.attrs.items():
                 d.attrs[k] = v
+
+
+def write_property(f, full_name: str, data: np.ndarray, prop: PropertyDef, reg: UnitRegistry,
+                   extra_attrs: Optional[Mapping[str, object]] = None):
+    """Create ``full_name`` in the open file ``f`` holding ``data``, with
+    ``property_attributes``' units, description and compression filter
+    (``soap_tpu/io/catalogue_writer.py::write_property``)."""
+    ds = f.create_dataset(full_name, data=data)
+    for k, v in property_attributes(prop, reg, extra_attrs).items():
+        ds.attrs[k] = v
+    return ds
 
 
 #: the time-stamp and git-hash attributes ``write_catalogue`` adds

@@ -7,7 +7,10 @@ copy of MINIMAL_FLAMINGO's file with the mock's paths, templated with
 process with ``--device cpu`` where it takes one, write what the
 function they call writes when called directly; every flag maps onto its
 keyword (with ``cuda`` the default device); ``--profile`` writes a
-torch.profiler trace.
+torch.profiler trace.  Each of the thirteen file subcommands, called in
+this process, prints what the JAX CLI prints for the same arguments,
+returns its exit code, and writes what its tool writes when called
+directly; ``--help`` lists all sixteen subcommands.
 """
 
 import json
@@ -21,17 +24,26 @@ import pytest
 import torch
 import yaml
 
+from soap_tpu import cli as jax_cli
 from soap_tpu.pipeline.membership import run_group_membership as jax_membership
-from soap_tpu.utils.mock_data import make_mock_simulation
+from soap_tpu.utils.mock_data import build_mock_universe, make_mock_simulation
 from soap_tpu_torch import cli
 from soap_tpu_torch.core.params import ParameterFile, substitute_parameters
 from soap_tpu_torch.io.catalogue_writer import read_catalogue
 from soap_tpu_torch.io.halo_catalogue import read_hbtplus_catalogue, read_hbtplus_groupnr
 from soap_tpu_torch.pipeline.membership import run_group_membership
 from soap_tpu_torch.pipeline.run import compute_halo_properties
+from soap_tpu_torch.tools import (
+    compare, compression, convert_eagle, docs, fof_radii, hydrogen_phases, match_membership,
+    membership_checks, timing_analysis, virtual_snapshot,
+)
 from soap_tpu_torch.tools import xray_calculator as xc
 from soap_tpu_torch.utils import mock_finders
 from soap_tpu_torch.utils.parity import catalogue_differences
+from test_convert_eagle import BOX_HFREE, _write_eagle_mock
+from test_match_membership import _write_sim
+from test_membership_checks import _mini_snap
+from test_torch_tools import _lossy_catalogue, assert_same_h5
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -241,3 +253,199 @@ def test_profile_writes_trace(sim, tmp_path, monkeypatch):
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 100
     assert read_catalogue(out).n_halos == 2
+
+
+SUBCOMMANDS = ["halo-properties", "membership", "compress", "extract-filters", "compare",
+               "property-table", "virtual-snapshot", "empty-catalogue", "recalculate-xrays",
+               "convert-eagle", "hydrogen-fractions", "check-membership", "birth-halo-index",
+               "fof-radii", "timing-analysis", "match-halos"]
+
+
+def test_help_lists_every_subcommand():
+    """``python -m soap_tpu_torch --help`` in its own process lists the
+    sixteen subcommands, the JAX CLI's, and loads no jax, soap_tpu, h5py
+    or yaml on the way."""
+    assert cli.subcommands(cli.build_parser()) == SUBCOMMANDS
+    r = _cli("--help")
+    listed = r.stdout.split("{", 1)[1].split("}", 1)[0].split(",")
+    assert listed == SUBCOMMANDS
+    code = ("import sys, runpy\n"
+            "sys.argv = ['soap_tpu_torch', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('soap_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
+            "print('loaded', bad)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("loaded []")
+
+
+@pytest.fixture(scope="module")
+def tool_inputs(sim, tmp_path_factory):
+    """Inputs of the file subcommands: ``sim``'s snapshot, membership and
+    HBTplus catalogue, a hydro mock, a FOF catalogue of ``sim``'s groups,
+    a catalogue under every lossy filter and its compressed copy, a
+    snapshot with real lossy pipelines and its filters file, a catalogue
+    with timing datasets, the birth-halo test's snapshots, the match
+    test's two simulations and the EAGLE conversion test's files."""
+    tmp = tmp_path_factory.mktemp("tool_inputs")
+    d = {k: sim[k] for k in ("snapshot", "membership", "hbt_basename")}
+    d["hydro_snapshot"] = make_mock_simulation(str(tmp / "hydro"), n_halos=3, n_field=1200,
+                                               boxsize=12.0, seed=10, hydro=True)["snapshot"]
+    uni = sim["universe"]
+    d["fof"] = str(tmp / "fof.hdf5")
+    with h5py.File(d["fof"], "w") as f:
+        f["Groups/GroupIDs"] = np.arange(1, uni.n_halos + 1, dtype=np.int64)
+        f["Groups/Centres"] = uni.halo_pos
+        f["Groups/Sizes"] = uni.halo_nbound.astype(np.int64)
+    d["catalogue"] = str(tmp / "lossy.hdf5")
+    _lossy_catalogue(d["catalogue"])
+    d["packed"] = str(tmp / "packed.hdf5")
+    compression.compress_catalogue(d["catalogue"], d["packed"])
+    d["lossy_snapshot"] = str(tmp / "lossy_snap.hdf5")
+    with compression.open_relaxed(d["lossy_snapshot"], mode="w") as f:
+        ds = compression._create_lossy_dataset(
+            f, "PartType1/Coordinates", np.random.default_rng(2).random((100, 3)), "DMantissa9", 4)
+        ds.attrs["Lossy compression filter"] = np.bytes_("DMantissa9")
+    d["filters"] = str(tmp / "filters.yml")
+    compression.write_filters_yaml(d["lossy_snapshot"], d["filters"])
+    d["timed"] = str(tmp / "timed.hdf5")
+    rng = np.random.default_rng(3)
+    with h5py.File(d["timed"], "w") as f:
+        f["InputHalos/process_time"] = rng.random(40).astype(np.float32)
+        f["InputHalos/n_loop"] = rng.integers(1, 4, 40).astype(np.int32)
+        f["InputHalos/NumberOfBoundParticles"] = rng.integers(20, 5000, 40).astype(np.uint32)
+        for group in ("BoundSubhalo", "SO/200_crit"):
+            for name in ("TotalMass", "CentreOfMass"):
+                f[f"{group}/{name}_time"] = rng.random(40).astype(np.float32)
+    s0, m0 = _mini_snap(tmp / "snap_0.hdf5", 0.4, [10, 11], grnr=[7, -1])
+    s1, m1 = _mini_snap(tmp / "snap_1.hdf5", 0.7, [10, 11, 12], grnr=[8, 2, 5])
+    d["birth_pairs"] = f"{s0}:{m0},{s1}:{m1}"
+    d["birth_final"] = _mini_snap(tmp / "final_snap.hdf5", 1.0, [10, 11, 12],
+                                  birth_a=[0.3, 0.6, 0.9])
+    d["match"] = [_write_sim(tmp, "a", perm=[0, 1, 2], id_offsets=[5, 6, 7]),
+                  _write_sim(tmp, "b", perm=[2, 0, 1], id_offsets=[40, 41, 42])]
+    eagle = build_mock_universe(n_halos=4, n_field=2500, boxsize=BOX_HFREE, seed=77,
+                                mass_range=(40.0, 200.0))
+    d["eagle"] = _write_eagle_mock(tmp, eagle)
+    return d
+
+
+def _match_args(d):
+    (s1, m1, c1), (s2, m2, c2) = d["match"]
+    return ["--snapshot1", s1, "--membership1", m1, "--catalogue1", c1, "--snapshot2", s2,
+            "--membership2", m2, "--catalogue2", c2]
+
+
+#: per case: the arguments (with ``OUT`` and ``OUT2`` for the outputs),
+#: the direct call writing the same outputs, and how an output compares
+#: ("h5", or "bytes" for text files; none: the printed line is the output)
+TOOL_CASES = {
+    "compress": (lambda d: ["compress", d["catalogue"], "OUT"],
+                 lambda d, o: compression.compress_catalogue(d["catalogue"], o[0]), "h5"),
+    "compress-gzip-filters": (
+        lambda d: ["compress", d["catalogue"], "OUT", "--gzip-level", "6", "--filters",
+                   d["filters"]],
+        lambda d, o: compression.compress_catalogue(d["catalogue"], o[0], 6,
+                                                    filters_file=d["filters"]), "h5"),
+    "extract-filters": (lambda d: ["extract-filters", d["lossy_snapshot"], "OUT"],
+                        lambda d, o: compression.write_filters_yaml(d["lossy_snapshot"], o[0]),
+                        "bytes"),
+    "compare-same": (lambda d: ["compare", d["catalogue"], d["catalogue"]],
+                     lambda d, o: print(compare.compare_catalogues(
+                         d["catalogue"], d["catalogue"]).report()), None),
+    "compare-packed": (lambda d: ["compare", d["catalogue"], d["packed"]],
+                       lambda d, o: print(compare.compare_catalogues(
+                           d["catalogue"], d["packed"]).report()), None),
+    "compare-packed-exact": (lambda d: ["compare", d["catalogue"], d["packed"], "--exact"],
+                             lambda d, o: print(compare.compare_catalogues(
+                                 d["catalogue"], d["packed"],
+                                 use_compression_tolerance=False).report()), None),
+    "property-table-rst": (lambda d: ["property-table", "OUT.rst"],
+                           lambda d, o: docs.generate_rst(o[0]), "bytes"),
+    "property-table-tex": (lambda d: ["property-table", "OUT.tex"],
+                           lambda d, o: docs.generate_latex(o[0]), "bytes"),
+    "virtual-snapshot": (lambda d: ["virtual-snapshot", d["snapshot"], d["membership"], "OUT"],
+                         lambda d, o: virtual_snapshot.make_virtual_snapshot(
+                             d["snapshot"], d["membership"], o[0]), "h5"),
+    "empty-catalogue": (lambda d: ["empty-catalogue", d["snapshot"], "OUT"],
+                        lambda d, o: virtual_snapshot.create_empty_catalogue(d["snapshot"], o[0]),
+                        "h5"),
+    "empty-catalogue-dmo": (lambda d: ["empty-catalogue", d["snapshot"], "OUT", "--dmo"],
+                            lambda d, o: virtual_snapshot.create_empty_catalogue(
+                                d["snapshot"], o[0], True), "h5"),
+    "convert-eagle": (lambda d: ["convert-eagle", d["eagle"][0], "OUT", "OUT2",
+                                 "--subfind-basename", d["eagle"][1], "--cells-per-dim", "2"],
+                      lambda d, o: convert_eagle.convert_eagle(
+                          d["eagle"][0], o[0], o[1], subfind_basename=d["eagle"][1],
+                          cells_per_dim=2), "h5"),
+    "hydrogen-fractions": (lambda d: ["hydrogen-fractions", d["hydro_snapshot"], "OUT"],
+                           lambda d, o: hydrogen_phases.compute_hydrogen_fractions(
+                               d["hydro_snapshot"], o[0]), "h5"),
+    "check-membership": (
+        lambda d: ["check-membership", d["snapshot"], d["membership"], d["hbt_basename"],
+                   "--halo-format", "HBTplus"],
+        lambda d, o: print("membership consistent: {n_labelled}/{n_particles} particles bound "
+                           "across {n_halos} halos".format(
+                               **membership_checks.check_group_membership(
+                                   d["snapshot"], d["membership"], d["hbt_basename"]))), None),
+    "birth-halo-index": (lambda d: ["birth-halo-index", d["birth_final"], "OUT", "--snapshots",
+                                    d["birth_pairs"]],
+                         lambda d, o: membership_checks.compute_birth_halo_index(
+                             [tuple(p.split(":")) for p in d["birth_pairs"].split(",")],
+                             d["birth_final"], o[0]), "h5"),
+    "fof-radii": (lambda d: ["fof-radii", d["snapshot"], d["fof"], "OUT"],
+                  lambda d, o: fof_radii.calculate_fof_radii(d["snapshot"], d["fof"], o[0]),
+                  "h5"),
+    "timing-analysis": (lambda d: ["timing-analysis", d["timed"]],
+                        lambda d, o: print(timing_analysis.report(d["timed"])), None),
+    "match-halos": (lambda d: ["match-halos", *_match_args(d), "--output", "OUT"],
+                    lambda d, o: match_membership.match_group_membership(
+                        *d["match"][0], *d["match"][1], o[0]), "h5"),
+    "match-halos-flags": (
+        lambda d: ["match-halos", *_match_args(d), "--output", "OUT", "--nr-particles", "4",
+                   "--match-satellites", "--ptypes", "1"],
+        lambda d, o: match_membership.match_group_membership(
+            *d["match"][0], *d["match"][1], o[0], ptypes=[1], nr_particles=4,
+            match_satellites=True), "h5"),
+}
+
+
+@pytest.mark.parametrize("case", list(TOOL_CASES))
+def test_file_subcommand(tool_inputs, tmp_path, capsys, case):
+    """The JAX CLI and the port's on the same arguments print the same and
+    return the same exit code (compare: 1 where the catalogues differ);
+    the port's outputs equal its tool's called directly."""
+    argv_of, direct, kind = TOOL_CASES[case]
+    argv = argv_of(tool_inputs)
+    outs = [str(tmp_path / name) for name in ("out", "out2")]
+
+    def resolve(args, paths):
+        names = {"OUT": paths[0], "OUT2": paths[1], "OUT.rst": paths[0] + ".rst",
+                 "OUT.tex": paths[0] + ".tex"}
+        return [names.get(a, a) for a in args]
+
+    printed = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        rc = main(resolve(argv, outs))
+        printed[name] = (rc, capsys.readouterr().out)
+    assert printed["port"] == printed["jax"]
+    rc = printed["port"][0]
+    assert rc == (1 if case == "compare-packed-exact" else 0)
+    if kind is None:
+        direct(tool_inputs, [])
+        assert capsys.readouterr().out == printed["port"][1]
+        return
+    got = [a for a in resolve(argv, outs) if a.startswith(str(tmp_path))]
+    want = [str(tmp_path / f"direct_{os.path.basename(p)}") for p in got]
+    direct(tool_inputs, want)
+    for g, w in zip(got, want):
+        if kind == "h5":
+            assert_same_h5(g, w)
+        else:
+            with open(g, "rb") as a, open(w, "rb") as b:
+                assert a.read() == b.read()

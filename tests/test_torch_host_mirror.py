@@ -109,8 +109,14 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
     catalogue from its array half (and Rockstar's from its files),
     interpolating a mock X-ray table built in memory, importing the
     multi-device module and the graft entry, running the graft entry's
-    halo function and the chunk loop over two CPU workers, loads no jax,
-    soap_tpu, h5py or yaml; the import primes the CPU math library."""
+    halo function and the chunk loop over two CPU workers, importing every
+    tool module and listing the command line's sixteen subcommands, and
+    running the tools' array halves (the membership label check and its
+    rejection, the birth-halo lookup, halo matching, FOF radii,
+    ``build_matrix``, the hydrogen fractions, the timing statistics and
+    report, the lossy-filter emulation and both documentation
+    generators), loads no jax, soap_tpu, h5py or yaml; the import primes
+    the CPU math library."""
     code = (
         "import sys\n"
         "import soap_tpu_torch\n"
@@ -186,6 +192,46 @@ def test_port_imports_no_jax_soap_tpu_or_h5py():
         "assert 'BoundSubhalo' in fn(parts, scalars)\n"
         "out = run.build_catalogue(meta, cat, host, specs, device=['cpu', 'cpu'], nr_chunks=2)\n"
         "assert len(out.chunks) == 2 and out.catalogue.n_halos == 6\n"
+        # the tools and their array halves
+        "from soap_tpu_torch.tools import (compare, compression, convert_eagle, docs,\n"
+        "    fof_radii, hydrogen_phases, match_membership, membership_checks, reorder_fof,\n"
+        "    timing_analysis, track_evolution, virtual_snapshot)\n"
+        "assert len(soap_tpu_torch.cli.subcommands(soap_tpu_torch.cli.build_parser())) == 16\n"
+        "ids, grnr, rank = uni.ids, g, r\n"
+        "bids = np.concatenate(uni.bound_ids)\n"
+        "bgrnr = np.repeat(np.arange(uni.n_halos), [len(b) for b in uni.bound_ids])\n"
+        "st = membership_checks.check_labels(ids, grnr, rank, uni.n_halos, bids, bgrnr)\n"
+        "assert st['n_labelled'] == len(bids)\n"
+        "bad = grnr.copy(); bad[np.flatnonzero(bad == 1)[0]] = 2\n"
+        "try:\n"
+        "    membership_checks.check_labels(ids, bad, rank, uni.n_halos, bids, bgrnr)\n"
+        "    raise AssertionError('a corrupted label passed')\n"
+        "except RuntimeError:\n"
+        "    pass\n"
+        "b = membership_checks.birth_halo_index(ids[:5], np.zeros(5), [0.5],\n"
+        "                                       lambda i: (ids, grnr))\n"
+        "assert (b == grnr[:5]).all()\n"
+        "pids = ids[grnr >= 0]\n"
+        "d = dict(particle_ids=pids, halo_ids=grnr[grnr >= 0].astype(np.int64),\n"
+        "         rank_bound=rank[grnr >= 0])\n"
+        "c = match_membership.MatchCatalogue(np.arange(uni.n_halos), np.ones(uni.n_halos, bool),\n"
+        "                                    -np.ones(uni.n_halos, np.int64))\n"
+        "m = match_membership.match_halos(d, d, c, c)\n"
+        "assert (m['MatchIndex1to2'] == np.arange(uni.n_halos)).all()\n"
+        "assert m['Consistent2to1'].all()\n"
+        "radii = fof_radii.fof_max_radii(np.arange(1, 7), uni.halo_pos, uni.boxsize,\n"
+        "                                [(uni.fof_ids, uni.pos)])\n"
+        "assert (radii > 0).all()\n"
+        "assert fof_radii.build_matrix(np.ones((3, 6))).shape == (3, 3, 3)\n"
+        "hi, hii, h2 = hydrogen_phases.hydrogen_fractions(np.full(4, 1e4), np.full(4, 1e3),\n"
+        "    np.full(4, 0.75), None, meta.snap_units_cgs, meta.a, meta.z)\n"
+        "assert np.allclose(hi + hii + 2 * h2, 1.0, rtol=0, atol=1e-12)\n"
+        "stats = timing_analysis.timing_stats(np.linspace(0.1, 1, 50), np.ones(50), np.arange(1, 51))\n"
+        "per = timing_analysis.group_seconds([('SO/r_time', np.ones(3))])\n"
+        "assert 'per-calculation' in timing_analysis.format_report(stats, per)\n"
+        "x = compression.apply_lossy_filter(np.linspace(1, 2, 9, dtype=np.float32), 'FMantissa9')\n"
+        "assert x.dtype == np.float32\n"
+        "assert docs.generate_rst().count('   * - ``') == docs.generate_latex().count('\\\\texttt{') // 2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'soap_tpu', 'h5py', 'yaml')]\n"
         "assert not bad, bad\n"
@@ -205,15 +251,26 @@ def _json(package, name):
 
 
 def test_property_data_mirrors_original():
+    """The key lists, and the property table whole: every entry with its
+    per-halo shape, and the footnotes; the registry serves both as the
+    JAX registry does."""
+    from soap_tpu.core.registry import full_property_table as jax_table
+    from soap_tpu_torch.core.registry import footnotes, full_property_table
+
     assert _json("soap_tpu_torch.core", "halo_type_property_keys.json") == _json(
         "soap_tpu.core", "halo_type_property_keys.json"
     )
-    theirs = _json("soap_tpu.core", "property_table.json")["properties"]
-    ours = _json("soap_tpu_torch.core", "property_table.json")["properties"]
-    assert list(ours) == list(theirs)
-    for key, e in theirs.items():
-        # every column but the per-halo shape, which nothing of the port reads
-        assert ours[key] == {k: v for k, v in e.items() if k != "shape"}, key
+    theirs = _json("soap_tpu.core", "property_table.json")
+    ours = _json("soap_tpu_torch.core", "property_table.json")
+    assert list(ours["properties"]) == list(theirs["properties"])
+    for key, e in theirs["properties"].items():
+        assert ours["properties"][key] == e, key
+    assert ours["footnotes"] == theirs["footnotes"] and len(ours["footnotes"]) == 32
+    assert footnotes() == {k: tuple(v) for k, v in theirs["footnotes"].items()}
+    table, jtable = full_property_table(), jax_table()
+    assert list(table.keys()) == list(jtable.keys()) and len(table) == len(jtable) == 304
+    for key in jtable.keys():
+        assert table[key].shape == jtable[key].shape, key
 
 
 @pytest.mark.parametrize(
