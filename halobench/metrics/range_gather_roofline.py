@@ -1,0 +1,16 @@
+"""K1's share of its roofline: the least time its calls in the traced
+passes could take (``roofline.py``, counted on those passes run again,
+untimed) over its device time in them (kernels named
+``range_gather_kernel``)."""
+
+KERNEL = "range_gather_kernel"
+
+
+def read(run):
+    dev, work = run["device"], run["work"]
+    if not dev or not work or not work["k1_calls"]:
+        return None
+    seconds = sum(s for name, (_, s) in dev["by_name"].items() if KERNEL in name)
+    if seconds <= 0:
+        return None
+    return 100.0 * work["k1_s"] / seconds
