@@ -357,15 +357,18 @@ def xray_kwargs(args) -> Dict[str, object]:
 
 
 def _profiled(fn, device: str, trace_dir: str):
-    """Run ``fn`` under torch.profiler (CPU, and CUDA on a CUDA device)
-    and write its Chrome trace into ``trace_dir``."""
+    """Run ``fn`` under torch.profiler (CPU, and CUDA on a CUDA device),
+    with the program's spans recorded as ranges of the profiler's
+    (``utils/trace.py``), and write its Chrome trace into ``trace_dir``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from soap_tpu_torch.utils import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, trace.recording(ranges=True):
         out = fn()
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "trace.json")

@@ -39,6 +39,7 @@ from soap_tpu_torch.pipeline.chunk_data import ChunkData, adopt, chunk_tensors, 
 from soap_tpu_torch.pipeline.engine import (
     READ_RADIUS_FACTOR, EngineStats, HaloEngine, min_physical_radius,
 )
+from soap_tpu_torch.utils import trace
 from soap_tpu_torch.utils.mock_data import MOCK_CELLS_PER_DIM
 
 #: one chunk's particle fields per type: (comoving positions (N, 3) f64
@@ -419,7 +420,9 @@ def process_chunks(
         # the importing thread's numpy error rules hold in the reader too
         with np.errstate(divide="raise", over="raise", invalid="raise"):
             t0 = time.perf_counter()
-            host = read_chunk(rows)
+            with trace.span("chunks.read", halos=len(rows)):
+                host = read_chunk(rows)
+            stage = trace.start("chunks.stage", side=side)
             if side:
                 chunk, ready = prestage(host, ctx.boxsize, device)
             else:
@@ -427,6 +430,7 @@ def process_chunks(
                 if device.type == "cuda":  # staged, not only queued
                     torch.cuda.current_stream(device).synchronize()
             stores, events = replicate(chunk, devices, ready)
+            stage.stop()
             n = sum(len(pos) for pos, _ in host.values())
             return stores, events, n, time.perf_counter() - t0
 
@@ -449,11 +453,13 @@ def process_chunks(
                               f"restart, {len(rows)} halos from scratch")
             else:
                 t0 = time.perf_counter()
+                wait = trace.start("chunks.wait", t0, chunk=c)
                 stores, events, rec.particles, rec.read_seconds = prefetcher.take(
                     c, lambda: load(rows, False))
                 for i, dev in enumerate(devices):  # no name outlives the stores
                     adopt(stores[i], events[i], dev)
                 rec.wait_seconds = time.perf_counter() - t0
+                wait.stop(t0 + rec.wait_seconds)
                 rec.store_bytes = store_bytes(stores[0])
                 if last is not None:
                     # no read in flight now: the last chunk's store and
@@ -465,6 +471,7 @@ def process_chunks(
                 for nc, nrows in to_compute[k + 1 : k + 2]:
                     prefetcher.submit(nc, lambda r=nrows: load(r, True))
                 t1 = time.perf_counter()
+                process = trace.start("engine.process", t1, chunk=c, halos=len(rows))
                 engine = HaloEngine(ctx, stores, specs, devices,
                                     record_halo_timings=record_halo_timings,
                                     record_spec_timings=record_property_timings)
@@ -478,8 +485,8 @@ def process_chunks(
                     enclose_radius_phys=cat.search_radius[rows] * ctx.a,
                 )
                 rec.engine_seconds = time.perf_counter() - t1
+                process.stop(t1 + rec.engine_seconds)
                 rec.peak_memory = {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
-                engine.stats.process_seconds = rec.engine_seconds
                 total.add(engine.stats)
                 del engine, stores, events
                 last = rec

@@ -40,6 +40,10 @@ Around that core, as in the JAX engine:
    (``tile_shares``); the shares run at once, one thread per device,
    and the host joins them in halo order before it resolves copies and
    retries, so the results equal the one-device engine's bit for bit.
+Under ``utils/trace.py::recording`` each round's plan, each bucket (its
+upload, the host's issue of its program, the wait for its results on the
+host, and their merge) and, inside the issue, each particle type's
+gather, the radius sort and each family are spans.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from soap_tpu_torch.pipeline.chunk_data import (
     presize_and_count,
     unpack_field,
 )
+from soap_tpu_torch.utils import trace
 
 READ_RADIUS_FACTOR = 1.5  # reference halo_tasks.py:16
 MAX_SEARCH_RADIUS = 20.0  # Mpc physical; reference halo_tasks.py:19-20
@@ -315,6 +320,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
     ctx_b = dataclasses.replace(ctx, capacities=(trunc,)) if trunc is not None else None
 
     def fn(parts: HaloParticles, scalars: HaloScalars):
+        sort = trace.start("dag.sort")
         shared = shared_sort_artifacts(parts, scalars, ctx, vel_payload=trunc is not None)
         parts_b = shared_b = trunc_bad = None
         if trunc is not None:
@@ -344,6 +350,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                 "bound_mask": bound_b,
             }
             trunc_bad = shared["_bound_sorted"].sum(1) > bound_b.sum(1)
+        sort.stop()
 
         out: Dict[str, Dict[str, torch.Tensor]] = {}
         prior: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -352,6 +359,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
             cx, pr, shr = (ctx_b, parts_b, shared_b) if truncated else (ctx, parts, shared)
             L = len(members)
             spec0 = members[0]
+            family = trace.start("dag.family", group=spec0.group, lanes=L)
             if L == 1:
                 s = _make_slice(spec0, cx, pr, scalars, prior)
             else:
@@ -379,6 +387,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                     r["__needs_bigger__"] = r["__needs_bigger__"] | trunc_bad
                 prior[spec.group] = r
                 out[spec.group] = r
+            family.stop()
         return out
 
     return fn
@@ -409,6 +418,7 @@ def _process_bucket(
     fields: Dict[str, torch.Tensor] = {}
     overflow = torch.zeros(centre_hi.shape[0], dtype=torch.bool, device=centre_hi.device)
     for ptype, cap, cube in zip(ctx.ptypes, ctx.capacities, cubes):
+        gather = trace.start("dag.gather", ptype=ptype)
         pt = chunk.ptypes[ptype]
         starts, counts = halo_cell_ranges(
             pt.spec, pt.offsets, pt.counts, centre_hi, radius_com, cube
@@ -458,6 +468,7 @@ def _process_bucket(
         for col in pt.cols_f + pt.cols_i:
             if col[0] not in _BASE_FIELDS:
                 fields[f"{ptype}/{col[0]}"] = fld(col[0])
+        gather.stop()
 
     def cat(key):
         return torch.cat([p[key] for p in parts_per_type], 1)
@@ -585,12 +596,6 @@ class EngineStats:
     #: inputs' upload to its results on the host
     shares_by_worker: Dict[str, int] = field(default_factory=dict)
     worker_seconds: Dict[str, float] = field(default_factory=dict)
-    #: wall seconds from each bucket's dispatch to its results on the
-    #: host (device compute + transfers), summed
-    compute_seconds: float = 0.0
-    #: wall seconds inside ``HaloEngine.process``, summed over chunks by
-    #: ``pipeline/chunks.py::process_chunks``
-    process_seconds: float = 0.0
     #: per-spec wall seconds (``record_spec_timings``)
     spec_seconds: Dict[str, float] = field(default_factory=dict)
     #: (group, catalogue indices, seconds attributed to each halo) per
@@ -879,6 +884,7 @@ class HaloEngine:
             do_trunc = trunc_enabled and first_round and not self.record_spec_timings
             # ---- presize + exact candidate counts ----
             n = len(pending)
+            plan = trace.start("engine.plan", halos=n)
             c_pad = chi[pending].astype(np.float32)
             r_pad = (radius_phys[pending] / a).astype(np.float32)
             e_pad = is_central[pending] if so_centrals_only else np.ones(n, bool)
@@ -1000,6 +1006,7 @@ class HaloEngine:
                         trunc_tile = min(kb, sum(caps))
                 plans.append(dict(sel=sel, bq=bq, caps=caps, cubes=cubes, S=S,
                                   specs=tuple(bucket_specs), trunc=trunc_tile))
+            plan.stop()
 
             # ---- bucket calls: each tile in one contiguous share of its
             # halos per worker, run at once, joined in halo order ----
@@ -1007,12 +1014,14 @@ class HaloEngine:
             for pl in plans:
                 g = pending[pl["sel"]]
                 nb = len(g)
-                t0 = time.perf_counter()
+                shares = tile_shares(nb, len(self.devices), pl["bq"])
+                # B: the largest share's lanes
+                bucket = trace.start("engine.bucket", pass_name=self._pass, halos=nb,
+                                     B=shares[0][3], caps=pl["caps"], trunc=pl["trunc"])
                 ctx = dataclasses.replace(ctx0, capacities=pl["caps"])
                 w = totals[pl["sel"]].astype(np.float64) + 1.0
                 halo_rows = (chi[g], clo[g], rcom[pl["sel"]], index[g],
                              radius_phys[g].astype(np.float32), is_central[g], fof_id[g])
-                shares = tile_shares(nb, len(self.devices), pl["bq"])
                 jobs = [(worker, ctx, pl, tuple(x[lo:hi] for x in halo_rows), B, w[lo:hi])
                         for worker, lo, hi, B in shares]
                 if pool is None:  # one worker, one share
@@ -1026,8 +1035,6 @@ class HaloEngine:
                     out = {grp: {k: np.concatenate([d[0][grp][k] for d in done]) for k in keys}
                            for grp, keys in done[0][0].items()}
                     ov = np.concatenate([d[1] for d in done])
-                dt = time.perf_counter() - t0
-                self.stats.compute_seconds += dt
                 for (_, lo, hi, _), (_, _, dt_share, stats) in zip(shares, done):
                     self.stats.add(stats)
                     if halo_seconds is not None:
@@ -1044,6 +1051,7 @@ class HaloEngine:
 
                 # resolve in spec order, so copied apertures chain off
                 # earlier (maybe also copied) ones
+                resolve = trace.start("engine.resolve")
                 bucket_out: Dict[str, Dict[str, np.ndarray]] = {}
                 for spec in specs:
                     gdict = out.get(spec.group, {})
@@ -1088,6 +1096,8 @@ class HaloEngine:
                     radius_phys[grown] *= READ_RADIUS_FACTOR
                     next_pending.extend(grown.tolist())
                     self.stats.n_retries += len(grown)
+                resolve.stop()
+                bucket.stop()
             pending = np.array(sorted(next_pending), dtype=np.int64)
         if halo_seconds is not None:
             self.stats.halo_timing_chunks.append(
@@ -1104,23 +1114,28 @@ class HaloEngine:
         guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with guard, np.errstate(**self._np_err):
             t0 = time.perf_counter()
-            halo_args = []
-            for x, (dtype, pad) in zip(halo_rows, _PADDING):
-                t = np.full((B,) + x.shape[1:], pad, dtype)
-                t[:nb] = x
-                halo_args.append(torch.from_numpy(t).to(dev))
+            name = f"{worker}@{dev}"
+            with trace.span("engine.upload", worker=name, B=B):
+                halo_args = []
+                for x, (dtype, pad) in zip(halo_rows, _PADDING):
+                    t = np.full((B,) + x.shape[1:], pad, dtype)
+                    t[:nb] = x
+                    halo_args.append(torch.from_numpy(t).to(dev))
             if self.record_spec_timings:
                 index = halo_rows[3]  # the share's catalogue indices
                 out, ov = self._timed_specs(stats, chunk, dev, ctx, pl, halo_args, nb, index, w)
             else:
-                out, overflow = _process_bucket(
-                    ctx, pl["specs"], pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
-                    stats.k1_launches_by_ptype, stats.k2_launches_by_group,
-                )
-                out = _to_host(out, nb)
-                ov = overflow[:nb].cpu().numpy()
+                # the host queues the bucket program, then waits for its
+                # results at their copy to the host
+                with trace.span("engine.issue", worker=name):
+                    out, overflow = _process_bucket(
+                        ctx, pl["specs"], pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
+                        stats.k1_launches_by_ptype, stats.k2_launches_by_group,
+                    )
+                with trace.span("engine.to_host", worker=name):
+                    out = _to_host(out, nb)
+                    ov = overflow[:nb].cpu().numpy()
             dt = time.perf_counter() - t0
-        name = f"{worker}@{dev}"
         stats.shares_by_worker[name] = 1
         stats.worker_seconds[name] = dt
         return out, ov, dt, stats

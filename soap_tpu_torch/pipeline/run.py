@@ -59,7 +59,7 @@ from soap_tpu_torch.pipeline.chunks import (
 )
 from soap_tpu_torch.pipeline.engine import EngineStats, HaloTypeSpec, min_physical_radius
 from soap_tpu_torch.pipeline.specs import build_specs
-from soap_tpu_torch.utils import mock_data
+from soap_tpu_torch.utils import mock_data, trace
 
 #: default solar abundance ratios (a parameter file's defined_constants
 #: override them)
@@ -533,6 +533,7 @@ def build_catalogue(
     A ``halo_format`` outside ``HALO_FORMATS`` raises ValueError."""
     _check_halo_format(halo_format)
     t_start = time.perf_counter()
+    prep = trace.start("entry.prep", t_start)
     cat = select_halos(cat, halo_indices, centrals_only, max_halos)
 
     # the search radius floor: the parameter file's min_read_radius_cmpc
@@ -572,6 +573,7 @@ def build_catalogue(
             _progress(f"host {host_index}/{host_count}: chunks {chunk_subset}")
 
     t0 = time.perf_counter()
+    prep.stop(t0)
     results, stats, records = process_chunks(
         read_chunk, cat, ctx, specs, search_radius_phys, device, nr_chunks=nr_chunks,
         scratch_dir=scratch_dir, chunk_subset=chunk_subset, prefetch=prefetch,
@@ -579,10 +581,12 @@ def build_catalogue(
         record_property_timings=record_property_timings, verbose=verbose,
     )
     t_post = time.perf_counter()
+    post = trace.start("entry.post", t_post)
     stage_seconds = sum(r.wait_seconds for r in records)
     engine_seconds = sum(r.engine_seconds for r in records)
 
     def uncombined(reason: str) -> EntryResult:
+        post.stop()
         if verbose:
             _progress(reason)
         return EntryResult(
@@ -720,10 +724,12 @@ def build_catalogue(
             ),
         },
     )
+    t_end = time.perf_counter()
+    post.stop(t_end)
     return EntryResult(
         catalogue=catalogue, results=results, halos=cat, order=order, stats=stats, ctx=ctx,
         prep_seconds=t0 - t_start, stage_seconds=stage_seconds, engine_seconds=engine_seconds,
-        post_seconds=time.perf_counter() - t_post, chunks=records,
+        post_seconds=t_end - t_post, chunks=records,
     )
 
 

@@ -237,8 +237,8 @@ def test_flag_maps_onto_keyword(command, flags, keyword, value):
 
 def test_profile_writes_trace(sim, tmp_path, monkeypatch):
     """``--profile`` traces the run with torch.profiler into
-    ``soap_tpu_torch_profile/`` under the working directory and still
-    writes the catalogue."""
+    ``soap_tpu_torch_profile/`` under the working directory, with the
+    program's spans among its ranges, and still writes the catalogue."""
     out = str(tmp_path / "profiled.hdf5")
     monkeypatch.chdir(tmp_path)
     threads = torch.get_num_threads()
@@ -252,6 +252,7 @@ def test_profile_writes_trace(sim, tmp_path, monkeypatch):
     with open(tmp_path / cli.PROFILE_DIR / "trace.json") as f:
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 100
+    assert {"engine.bucket", "entry.post"} <= {e.get("name") for e in trace["traceEvents"]}
     assert read_catalogue(out).n_halos == 2
 
 

@@ -25,6 +25,7 @@ from soap_tpu_torch.pipeline import chunk_data as tcd
 from soap_tpu_torch.pipeline.chunk_data import chunk_from_numpy
 from soap_tpu_torch.pipeline.engine import HaloEngine, HaloTypeSpec
 from soap_tpu_torch.pipeline.specs import slice_specs
+from soap_tpu_torch.utils import trace
 
 #: keys compared at rtol 1e-5; the rest sum in different orders with
 #: cancellation (com, vcom, inertia tensors): rtol 1e-3, atol 1e-4 max|ref|
@@ -79,16 +80,19 @@ def runs():
         HaloContext(**ctx_kw), chunk_from_numpy(jchunk, torch.device("cpu")),
         specs, torch.device("cpu"),
     )
-    got = teng.process(**args)
+    with trace.recording() as rec:
+        got = teng.process(**args)
     return dict(ref=ref, got=got, jstats=jeng.stats, tstats=teng.stats,
-                ctx_kw=ctx_kw, jchunk=jchunk, args=args)
+                ctx_kw=ctx_kw, jchunk=jchunk, args=args, spans=rec.records())
 
 
 def test_bucket_calls_and_retries_match(runs):
     j, t = runs["jstats"], runs["tstats"]
     assert t.n_retries > 0  # the retry ladder ran
     assert (t.n_bucket_calls, t.n_retries) == (j.n_bucket_calls, j.n_retries)
-    assert t.compute_seconds > 0
+    buckets = [s for s in runs["spans"] if s["name"] == "engine.bucket"]
+    assert len(buckets) == t.n_bucket_calls
+    assert all(s["end"] > s["start"] for s in buckets)
 
 
 @pytest.mark.parametrize("group,key", KEYS, ids=[f"{g}/{k}" for g, k in KEYS])
