@@ -6,10 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py            # add --profile for kernel profiles
                                      # (main, hydro and COLIBRE paths)
     python3 chip_smoke.py --multi-device-only   # phases 11 and 19
+    python3 chip_smoke.py --kernels-only        # phases 1-4 and 4s
 
 Phases, each printing its lines and raising on failure:
  1. device: nvidia-smi's name and power limit, torch and CUDA versions;
- 2. build: both CUDA kernels from soap_tpu_torch/csrc into
+ 2. build: the three CUDA kernels from soap_tpu_torch/csrc into
     build/soap_tpu_torch, one nvcc per source, started together;
  3. K1 (range gather) against its plain version at two cells, a 10.5M x
     16 store (DMO rows) and a 1.5M x 128 one (the hydro path's gas rows),
@@ -23,6 +24,14 @@ Phases, each printing its lines and raising on failure:
     16) and the luminosity-weighted stellar configs' (9 bands x 256 star
     segments of 4096 rows on the halo axis, C=2), each also launched
     twice for torch.equal results;
+ 4s. K3 (particle sums) at K3_CELLS against the float64 path
+    ``x.double().sum(dim)`` (float32 out: equal in every element but
+    float64 rounding ties, which it counts; float64 out: within another
+    order's rounding), launched twice for torch.equal results, timed on
+    the card (calls queued behind a spin, so the host's issue is hidden)
+    beside the plain path it replaces (``x.sum(dim,
+    dtype=torch.float64).to(torch.float32)``, or the float64 copy and sum
+    for float64 out), and the host's microseconds to issue a call of each;
  5. the engine on the GPU against the engine on the CPU, with the full
     DMO production spec list and catalogue EncloseRadius, on a 64-halo
     mock with satellites, understated EncloseRadius (the truncation
@@ -65,8 +74,11 @@ Phases, each printing its lines and raising on failure:
     particles, the full spec list of 38 calculations and 508 keys, with
     EncloseRadius): a warm pass, then TIMED_PASSES timed passes, each
     with every launch counter set to 0 just before it and read just
-    after, then a checked pass that holds every K1 and K2 call against
-    its plain version at the shapes the path gives it;
+    after, then a checked pass that holds every K1, K2 and K3 call
+    against its plain version at the shapes the path gives it (K3
+    against the float64 path: float32 equal but at counted rounding
+    ties, float64 within 2 K u sum|x|), as many calls as the timed pass
+    launched;
  7. the giant-halo path: bench.py's giant configuration (6 halos of
     0.9-1.6M particles) with the engine slice's small spec set (2
     calculations, 12 keys) and GIANT_TIMED_PASSES timed passes (the full
@@ -172,14 +184,19 @@ plain version's, the least time the card could take for the same work,
 and the library call's; each path's launches and checked calls), the
 card's nvidia-smi line, and last a JSON object with "ok": true.  With
 ``--multi-device-only`` it builds the kernels and runs phases 11 and 19
-alone (for a machine with several cards), then prints the last two.
+alone (for a machine with several cards), then prints the last two;
+with ``--kernels-only`` phases 1-4 and 4s, then the kernels' JSON line
+of their cells and the last two.
 Without a CUDA device it exits 1 before printing any result.  Imports
 torch, numpy and soap_tpu_torch only.
 """
 
 import dataclasses
 import importlib
+import itertools
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -200,6 +217,7 @@ from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
 from soap_tpu_torch.ops import kernel_lib
 from soap_tpu_torch.ops import range_gather as rg
+from soap_tpu_torch.ops import reductions as red
 from soap_tpu_torch.ops.inertia import pack_inertia_inputs
 from soap_tpu_torch.pipeline.chunk_data import ChunkData, stage_ptype
 from soap_tpu_torch.parallel.domain import peano_decomposition
@@ -276,6 +294,17 @@ K2_CELLS = (
     # segments on the halo axis, each lane its band's weights, C = 2
     ("band-lanes", 256, 4096, 2, 9),
 )
+#: K3 cells: name, shape, reduced axis, output dtype, masked: a bucket's
+#: mass sums, an SO family's 32 configs' inertia sums into float64, one
+#: giant halo's row (split over warps, then the finishing kernel) and a
+#: bucket's masked position sums
+K3_CELLS = (
+    ("rows", (1024, 8192), 1, torch.float32, False),
+    ("configs-f64", (256, 32, 32768), -1, torch.float64, False),
+    ("giant", (1, 1 << 20), 1, torch.float32, False),
+    # a bucket's masked position sums: rows of stride 3, read in place
+    ("positions", (512, 4096, 3), 1, torch.float32, True),
+)
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 #: HBM bytes/s and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -317,6 +346,39 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def device_ms(fn, n=20, reps=5):
+    """Median of ``reps`` device timings of one call of ``fn``: ``n``
+    calls queued behind a spin of the card, between two CUDA events, so
+    that the host's time to issue them is hidden (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)  # ~1 ms of spinning: the host queues meanwhile
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / n)
+    return float(np.median(times))
+
+
+def host_us(fn, n=200):
+    """Host microseconds to issue one call of ``fn`` (``n`` in a row,
+    after one warm call; the card works behind them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def bound_ms(n_bytes, n_ops):
     """(least time in ms, what bounds it): the larger of the bytes over
     the card's memory rate and the operations over its f32 peak."""
@@ -355,12 +417,12 @@ def k2_bound(args):
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ("range_gather", "inertia_loop")
+    names = ("range_gather", "inertia_loop", "particle_sum")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(kernel_lib.build, names))
     for name in names:
         kernel_lib.load(name)
-    say("build", f"range_gather + inertia_loop into {kernel_lib.BUILD_DIR} in "
+    say("build", f"{' + '.join(names)} into {kernel_lib.BUILD_DIR} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {kernel_lib.BUILD_SECONDS})")
 
 
@@ -481,6 +543,112 @@ def phase_k2(dev):
             f"{int(enough.sum())}/{enough.numel()}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del w, pos, masks, R, args, got, again, ref
+        torch.cuda.empty_cache()
+    return cells
+
+
+def k3_ties(got, x, dim):
+    """(elements off, of them at float64 rounding ties): ``got`` (float32)
+    against the float32 rounding of ``x.double().sum(dim)``; a tie is one
+    ulp off with the two float32 values' midpoint within 2 K u sum|x| of
+    that float64 sum, the most two orders of its additions can differ."""
+    s64 = x.double().sum(dim)
+    want = s64.float()
+    diff = (got != want) & ~(got.isnan() & want.isnan())
+    mid = (got.double() + want.double()) / 2
+    bound = 2 * x.shape[dim] * 2.0**-53 * x.double().abs().sum(dim)
+    tie = diff & (torch.nextafter(want, got) == got) & ((mid - s64).abs() <= bound)
+    return int(diff.sum()), int(tie.sum())
+
+
+def k3_against_float64(got, x, dim, mask):
+    """(elements off, of them at float64 rounding ties): K3's ``got``
+    against ``x.double().sum(dim)`` over the ``mask``-selected elements,
+    float32 results as ``k3_ties`` holds them, float64 ones within 2 K u
+    sum|x| of it (no tie).  Taken over slices of the leading axis, so the
+    float64 copies stay small beside an engine pass's own tensors."""
+    dim = dim % x.dim()
+    m = None if mask is None else red._trailing(mask, x.dim()).expand(x.shape)
+    step = max(1, (1 << 26) // max(1, x[0].numel())) if dim and len(x) else max(1, len(x))
+    off = ties = 0
+    for i in range(0, max(1, len(x)) if dim else 1, step):
+        xs, gs = (x[i : i + step], got[i : i + step]) if dim else (x, got)
+        if m is not None:
+            xs = torch.where(m[i : i + step] if dim else m, xs, 0)
+        if gs.dtype == torch.float32:
+            o, t = k3_ties(gs, xs, dim)
+            off, ties = off + o, ties + t
+        else:
+            s64 = xs.double().sum(dim)
+            bound = 2 * x.shape[dim] * 2.0**-53 * xs.double().abs().sum(dim)
+            ok = (gs == s64) | ((gs - s64).abs() <= bound) | (gs.isnan() & s64.isnan())
+            off += int((~ok).sum())
+    return off, ties
+
+
+def phase_k3(dev):
+    cells = {}
+    for name, shape, dim, out_dtype, masked in K3_CELLS:
+        rng = np.random.default_rng([3, *shape])
+        x = torch.from_numpy(rng.lognormal(0.0, 2.0, shape).astype(np.float32)).to(dev)
+        mask = None
+        if masked:  # one selection over the particle axis, shared by the columns
+            mask = torch.from_numpy(rng.random(shape[:2]) < 0.7).to(dev)
+        od = None if out_dtype == x.dtype else out_dtype
+        n0 = red.launches
+        got = red.particle_sum(red.Summand(x, mask, od), dim)
+        again = red.particle_sum(red.Summand(x, mask, od), dim)
+        torch.cuda.synchronize()
+        if red.launches - n0 != 2:
+            raise AssertionError(f"K3 {name}: {red.launches - n0} launches, not 2")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        xm = x if mask is None else torch.where(mask[..., None], x, 0.0)
+        if out_dtype == torch.float32:
+            off, ties = k3_ties(got, xm, dim)
+            if off != ties:
+                raise AssertionError(f"K3 {name}: {off - ties} elements off beyond a tie")
+            check = f"float32 equal to the float64 path but {ties} ties"
+
+            def plain(x, mask):
+                if mask is not None:
+                    x = torch.where(mask[..., None], x, 0.0)
+                return x.sum(dim, dtype=torch.float64).to(torch.float32)
+        else:
+            s64 = xm.double().sum(dim)
+            err = ((got - s64).abs() / (x.shape[dim] * 2.0**-53 * xm.double().abs().sum(dim)))
+            if float(err.max()) > 2.0:
+                raise AssertionError(f"K3 {name}: float64 {float(err.max()):.3f} K u sum|x| off")
+            check = f"float64 within {float(err.max()):.3f} K u sum|x| of the float64 path"
+
+            def plain(x, mask):
+                return x.to(torch.float64).sum(dim, dtype=torch.float64)
+        del got, again, xm
+        # copies of the inputs, taken in turn, over more than twice the
+        # 50 MB L2, so that every call reads its input from device memory
+        n_bytes_in = x.numel() * 4 + (0 if mask is None else mask.numel())
+        inputs = [(x, mask)] + [(x.clone(), None if mask is None else mask.clone())
+                                for _ in range(-(-(120 << 20) // n_bytes_in) - 1)]
+        turn = itertools.cycle(inputs)
+
+        def kernel():
+            xi, mi = next(turn)
+            return red.particle_sum(red.Summand(xi, mi, od), dim)
+
+        def plain_turn():
+            return plain(*next(turn))
+        ms, plain_ms = device_ms(kernel), device_ms(plain_turn)
+        us, plain_us = host_us(kernel), host_us(plain_turn)
+        n_out = x.numel() // x.shape[dim]
+        n_bytes = n_bytes_in + n_out * (8 if out_dtype == torch.float64 else 4)
+        bms, by = bound_ms(n_bytes, 0)
+        cell = f"shape={tuple(shape)} dim={dim} out={out_dtype}{' masked' if masked else ''}"
+        cells[name] = dict(cell=cell, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           library_ms=None, host_us=us, plain_host_us=plain_us)
+        say("K3", f"{name} {cell}: {check}, two launches torch.equal; kernel {ms:.4f} ms "
+            f"({n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}); host {us:.1f} us a call, plain {plain_us:.1f} us")
+        del x, mask, inputs
         torch.cuda.empty_cache()
     return cells
 
@@ -860,22 +1028,31 @@ def phase_engine_params(dev):
 
 
 class PathCheck:
-    """Holds every K1 and K2 call of one engine pass against its plain
-    version on the same inputs, right after the call, and records the
+    """Holds every K1, K2 and K3 call of one engine pass against its
+    plain version on the same inputs, right after the call (K3 against
+    ``x.double().sum(dim)``: ``k3_against_float64``), and records the
     shapes the path gave each kernel and the devices it launched on.  It
-    wraps the names the engine calls the wrappers through, so each launch
-    counter still counts only the engine's own launches; the plain
-    versions count none.  The engine's worker threads call it at once."""
+    wraps the names the engine calls the wrappers through
+    (``particle_sum`` calls ``reductions._kernel_sum`` by its module's
+    name), so each launch counter still counts only the engine's own
+    launches; the plain versions count none.  The engine's worker threads
+    call it at once."""
 
     def __init__(self):
         self.k1 = dict(calls=0, max_abs_err=0.0, shapes={}, devices={})
         self.k2 = dict(calls=0, max_abs_err=0.0, shapes={}, devices={})
+        self.k3 = dict(calls=0, ties=0, shapes={}, devices={})
         self._lock = threading.Lock()
 
-    def _note(self, rec, shape, err, device):
+    def _note(self, rec, shape, err, device, ties=0):
+        """One checked call: K1's and K2's max abs error (``err``), K3's
+        rounding ties (``err`` None)."""
         with self._lock:
             rec["calls"] += 1
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if err is None:
+                rec["ties"] += ties
+            else:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
             rec["devices"][str(device)] = rec["devices"].get(str(device), 0) + 1
 
@@ -906,13 +1083,30 @@ class PathCheck:
                    got.device)
         return got
 
+    def _k3(self, x, dim, mask, out_dtype):
+        n = red.launches_here()
+        got = self._kernel_sum(x, dim, mask, out_dtype)
+        if red.launches_here() == n:  # no rows, no launch
+            return got
+        shape = (f"{tuple(x.shape)} dim={dim % x.dim()} {str(x.dtype)[6:]}->"
+                 f"{str(out_dtype)[6:]}{' masked' if mask is not None else ''}")
+        off, ties = k3_against_float64(got, x, dim, mask)
+        if off != ties:
+            raise AssertionError(f"K3 at {shape}: {off - ties} elements off the float64 path "
+                                 f"beyond a rounding tie")
+        self._note(self.k3, shape, None, got.device, ties)
+        return got
+
     def __enter__(self):
         self._range_gather, self._inertia_loop = rg.range_gather_blocks, inertia_ops.inertia_loop
+        self._kernel_sum = red._kernel_sum
         rg.range_gather_blocks, inertia_ops.inertia_loop = self._k1, self._k2
+        red._kernel_sum = self._k3
         return self
 
     def __exit__(self, *exc):
         rg.range_gather_blocks, inertia_ops.inertia_loop = self._range_gather, self._inertia_loop
+        red._kernel_sum = self._kernel_sum
 
 
 def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
@@ -933,7 +1127,7 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
     for _ in range(timed):
         engine = HaloEngine(ctx, chunk, specs, dev)
         torch.cuda.synchronize()
-        rg.launches = il.launches = 0
+        rg.launches = il.launches = red.launches = 0
         il.cluster_launches.clear()
         hs.k2_launches_by_config.clear()
         t0 = time.perf_counter()
@@ -941,6 +1135,9 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
+        k3 = {"particle_sum": red.launches}
+        if not k3["particle_sum"]:
+            raise AssertionError(f"{tag} path: no particle sum launched K3")
         by_g = dict(sorted(il.cluster_launches.items()))
         k2_by_config = dict(sorted(hs.k2_launches_by_config.items()))
         # every kernel the list runs launched (K2 only with iterative
@@ -964,9 +1161,11 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
     with PathCheck() as check:
         HaloEngine(ctx, chunk, specs, dev).process(**args)
         torch.cuda.synchronize()
-    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
-        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
-                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    if (check.k1["calls"], check.k2["calls"], check.k3["calls"]) != (
+            *launches.values(), k3["particle_sum"]):
+        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1, "
+                             f"{check.k2['calls']} K2 and {check.k3['calls']} K3 calls, the "
+                             f"timed pass {launches}, {k3}")
     by_cg = {}
     for shape, n in check.k2["shapes"].items():
         cg = " ".join(shape.split()[2:])
@@ -976,13 +1175,25 @@ def drive_path(tag, H, inputs, dev, timed=TIMED_PASSES):
         f"{', '.join(f'{r:.2f}' for r in rates)}); {_counters(engine.stats)}; "
         f"peak device memory {peak:.2f} GiB; launches per pass {launches}, K1 "
         f"launches by type {k1_by_ptype}, K2 launches by config {k2_by_config}, "
-        f"by family {k2_by_family}, by G {by_g}, by C and G {dict(sorted(by_cg.items()))}")
+        f"by family {k2_by_family}, by G {by_g}, by C and G {dict(sorted(by_cg.items()))}; "
+        f"K3 sums {k3['particle_sum']}")
     say(tag, f"checked pass, every call against its plain version: K1 "
         f"bit-equal at {check.k1['shapes']}; K2 within rtol {K2_RTOL} at "
-        f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e})")
-    return dict(res=res, launches=launches, by_g=by_g, k1_by_ptype=k1_by_ptype,
+        f"{check.k2['shapes']} (max abs err {check.k2['max_abs_err']:.3e}); {k3_line(check.k3)}")
+    return dict(res=res, launches=launches, k3=k3, by_g=by_g, k1_by_ptype=k1_by_ptype,
                 k2_by_config=k2_by_config, k2_by_family=k2_by_family, inputs=inputs,
-                check={"range_gather": check.k1, "inertia_loop": check.k2})
+                check={"range_gather": check.k1, "inertia_loop": check.k2,
+                       "particle_sum": check.k3})
+
+
+def k3_line(rec):
+    """One line for a checked pass's K3 calls: how many, at how many
+    layouts (the five largest named), and the rounding ties."""
+    big = sorted(rec["shapes"], key=lambda s: -math.prod(
+        int(n) for n in re.findall(r"\d+", s.split(")")[0])))[:5]
+    return (f"K3 {rec['calls']} sums at {len(rec['shapes'])} layouts (largest {big}) equal "
+            f"to the float64 path but {rec['ties']} float32 rounding ties, float64 within "
+            f"2 K u sum|x|")
 
 
 def phase_main(dev):
@@ -1153,7 +1364,7 @@ def drive_entry(tag, inputs, dev, timed, **kw):
     for _ in range(timed):
         torch.cuda.synchronize()
         baseline = torch.cuda.memory_allocated()
-        rg.launches = il.launches = 0
+        rg.launches = il.launches = red.launches = 0
         il.cluster_launches.clear()
         hs.k2_launches_by_config.clear()
         t0 = time.perf_counter()
@@ -1162,8 +1373,10 @@ def drive_entry(tag, inputs, dev, timed, **kw):
         dt = time.perf_counter() - t0
         passes.append((baseline, out.chunks))
         launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
-        if launches["range_gather"] == 0 or (launches["inertia_loop"] > 0) != uses_k2(specs):
-            raise AssertionError(f"{tag} path bypassed a kernel: {launches}")
+        k3 = {"particle_sum": red.launches}
+        if launches["range_gather"] == 0 or (launches["inertia_loop"] > 0) != uses_k2(specs) \
+                or not k3["particle_sum"]:
+            raise AssertionError(f"{tag} path bypassed a kernel: {launches}, {k3}")
         rates.append(H / dt)
         parts.append((out.prep_seconds, out.stage_seconds, out.engine_seconds, out.post_seconds))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1178,9 +1391,11 @@ def drive_entry(tag, inputs, dev, timed, **kw):
     with PathCheck() as check:
         run_entry(inputs, dev, **kw)
         torch.cuda.synchronize()
-    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
-        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1 and "
-                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
+    if (check.k1["calls"], check.k2["calls"], check.k3["calls"]) != (
+            *launches.values(), k3["particle_sum"]):
+        raise AssertionError(f"{tag} checked pass made {check.k1['calls']} K1, "
+                             f"{check.k2['calls']} K2 and {check.k3['calls']} K3 calls, the "
+                             f"timed pass {launches}, {k3}")
     med = np.median(np.array(parts), 0)
     say(tag, f"{H} halos: entry halos/s over {timed} timed passes median "
         f"{np.median(rates):.2f} (min {min(rates):.2f}, max {max(rates):.2f}; "
@@ -1193,9 +1408,10 @@ def drive_entry(tag, inputs, dev, timed, **kw):
         f"{dict(sorted(out.stats.k2_launches_by_group.items()))}; {len(cat.datasets)} datasets")
     say(tag, f"checked pass, every call against its plain version: K1 bit-equal at "
         f"{check.k1['shapes']}; K2 within rtol {K2_RTOL} at {check.k2['shapes']} (max abs "
-        f"err {check.k2['max_abs_err']:.3e})")
+        f"err {check.k2['max_abs_err']:.3e}); {k3_line(check.k3)}")
     return dict(out=out, launches=launches, inputs=inputs, passes=passes, peak=peak,
-                rates=rates, check={"range_gather": check.k1, "inertia_loop": check.k2})
+                rates=rates, check={"range_gather": check.k1, "inertia_loop": check.k2,
+                                    "particle_sum": check.k3})
 
 
 def _sorted_cells(cat, meta):
@@ -1774,7 +1990,7 @@ def phase_multi_device(dev, one):
     say("multi-device", f"(c) main entry over {names}: warm pass {time.perf_counter() - t0:.2f} s")
     for d in _cards(devices):
         torch.cuda.reset_peak_memory_stats(d)
-    rg.launches = il.launches = 0
+    rg.launches = il.launches = red.launches = 0
     il.cluster_launches.clear()
     hs.k2_launches_by_config.clear()
     t0 = time.perf_counter()
@@ -1782,8 +1998,9 @@ def phase_multi_device(dev, one):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"range_gather": rg.launches, "inertia_loop": il.launches}
-    if launches["range_gather"] == 0 or launches["inertia_loop"] == 0:
-        raise AssertionError(f"multi-device (c) path bypassed a kernel: {launches}")
+    k3 = red.launches
+    if launches["range_gather"] == 0 or launches["inertia_loop"] == 0 or k3 == 0:
+        raise AssertionError(f"multi-device (c) path bypassed a kernel: {launches}, K3 {k3}")
     # per card, the most allocated in the timed pass, as the chunk loop read it
     peak = {str(d): round(max(r.peak_memory[str(d)] for r in out.chunks) / 2**30, 2)
             for d in _cards(devices)}
@@ -1798,10 +2015,12 @@ def phase_multi_device(dev, one):
     with PathCheck() as check:
         run_entry(inputs, devices)
         torch.cuda.synchronize()
-    if (check.k1["calls"], check.k2["calls"]) != tuple(launches.values()):
-        raise AssertionError(f"multi-device (c) checked pass made {check.k1['calls']} K1 and "
-                             f"{check.k2['calls']} K2 calls, the timed pass {launches}")
-    on_devices = sorted(set(check.k1["devices"]) | set(check.k2["devices"]))
+    if (check.k1["calls"], check.k2["calls"], check.k3["calls"]) != (*launches.values(), k3):
+        raise AssertionError(f"multi-device (c) checked pass made {check.k1['calls']} K1, "
+                             f"{check.k2['calls']} K2 and {check.k3['calls']} K3 calls, the "
+                             f"timed pass {launches}, K3 {k3}")
+    on_devices = sorted(set(check.k1["devices"]) | set(check.k2["devices"])
+                        | set(check.k3["devices"]))
     if len(_cards(devices)) > 1 and on_devices != sorted(str(d) for d in _cards(devices)):
         raise AssertionError(f"multi-device (c): kernels launched on {on_devices} only")
     say("multi-device", f"(c) main entry over {names}: {H} halos in one timed pass "
@@ -1816,7 +2035,8 @@ def phase_multi_device(dev, one):
     say("multi-device", f"(c) checked pass, every call against its plain version: K1 "
         f"bit-equal, {check.k1['calls']} calls by device {check.k1['devices']}; K2 within "
         f"rtol {K2_RTOL}, {check.k2['calls']} calls by device {check.k2['devices']} (max abs "
-        f"err {check.k2['max_abs_err']:.3e})"
+        f"err {check.k2['max_abs_err']:.3e}); {k3_line(check.k3)} by device "
+        f"{check.k3['devices']}"
         + ("" if len(_cards(devices)) > 1 else "; only one card was seen, so no launch on "
            "cuda:1 (the device guard is not exercised)"))
 
@@ -2028,6 +2248,17 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    if "--kernels-only" in sys.argv[1:]:
+        k1 = {cell[0]: phase_k1(dev, cell) for cell in K1_CELLS}
+        k2 = phase_k2(dev)
+        k3 = phase_k3(dev)
+        print(json.dumps({"kernels": {"range_gather": k1, "inertia_loop": k2,
+                                      "particle_sum": k3}}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--multi-device-only" in sys.argv[1:]:
         phase_multi_device(dev, phase_entry_main(dev, build_mock_universe(**BENCH)))
         print(smi, flush=True)
@@ -2037,6 +2268,7 @@ def main():
         return 0
     k1 = {cell[0]: phase_k1(dev, cell) for cell in K1_CELLS}
     k2 = phase_k2(dev)
+    k3 = phase_k3(dev)
     phase_engine(dev)
     phase_engine_hydro(dev)
     phase_capacity(dev)
@@ -2136,6 +2368,18 @@ def main():
                       + ("480" if cell == "giant" else "461"), cell_name=cell,
              **path("inertia_loop"), **k2[cell])
         for cell in k2
+    ] + [
+        # K3 replaces no TPU kernel; its launches: the particle sums of
+        # one timed pass of each engine path
+        dict(name="particle_sum", route="cuda",
+             source="soap_tpu_torch/csrc/particle_sum.cu", replaces=None, cell_name=cell,
+             launches=main_run["k3"]["particle_sum"],
+             giant_path_launches=giant_run["k3"]["particle_sum"],
+             hydro_path_launches=hydro_run["k3"]["particle_sum"],
+             colibre_path_launches=colibre_run["k3"]["particle_sum"],
+             colibre_every_key_path_launches=every_key_run["k3"]["particle_sum"],
+             **k3[cell])
+        for cell in k3
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

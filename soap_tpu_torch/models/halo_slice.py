@@ -1913,7 +1913,7 @@ class SOSlice(HaloSlice):
         area = math.pi * torch.clamp(self.r, min=1e-37) ** 2
         sigma_t_over_c = 6.6524587158e-29 / (3.0856775815e22**2) / 2.99792458e5
         total = red.particle_sum(
-            torch.where(sel, ne * vr * volumes, 0.0).to(torch.float64)
+            red.Summand(ne * vr * volumes, sel, torch.float64)
         ) / area.to(torch.float64)
         return torch.where(self.exists, sigma_t_over_c * total, 0.0).to(torch.float32)
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from soap_tpu_torch.ops.inertia_loop import inertia_loop
-from soap_tpu_torch.ops.reductions import particle_sum
+from soap_tpu_torch.ops.reductions import Summand, particle_sum
 
 TOL = 1.0e-4
 MIN_PARTICLES = 20
@@ -183,10 +183,10 @@ def sphere_moments(pos3, w, mw, R, reduced, limit, occ, done0, max_iterations):
     wsel = torch.where(inside, w[:, None], 0.0)
     wi = torch.where(inside, torch.where(reduced.bool()[..., None], w_inv, w[:, None]), 0.0)
     sums = [
-        particle_sum((wi * a * b).to(torch.float64), -1)
+        particle_sum(Summand(wi * a * b, out_dtype=torch.float64), -1)
         for a, b in ((x, x), (x, y), (x, z), (y, y), (y, z), (z, z))
     ]
-    inv = 1.0 / torch.clamp(particle_sum(wsel.to(torch.float64), -1), min=1e-37)
+    inv = 1.0 / torch.clamp(particle_sum(Summand(wsel, out_dtype=torch.float64), -1), min=1e-37)
     out = torch.stack([s * inv for s in sums], -1).to(torch.float32)
     return torch.where(done0.bool()[..., None], 0.0, out)
 
@@ -340,9 +340,9 @@ def projected_inertia_tensor_multi(
         inside = masks & (rr <= 1.0)
         w = torch.where(inside, w_in, 0.0)
         wi = torch.where(inside, torch.where(red[None, :, None], w_inv, w_in), 0.0)
-        sums = [particle_sum((wi * a * b).to(torch.float64), -1)
+        sums = [particle_sum(Summand(wi * a * b, out_dtype=torch.float64), -1)
                 for a, b in ((px, px), (px, py), (py, py))]
-        inv = 1.0 / torch.clamp(particle_sum(w.to(torch.float64), -1), min=1e-37)
+        inv = 1.0 / torch.clamp(particle_sum(Summand(w, out_dtype=torch.float64), -1), min=1e-37)
         xx, xy, yy = (s * inv for s in sums)
         t = torch.stack(
             [torch.stack([xx, xy], -1), torch.stack([xy, yy], -1)], -2

@@ -71,7 +71,7 @@ from soap_tpu_torch.models.halo_slice import (
     shared_sort_artifacts,
 )
 from soap_tpu_torch.ops import cpu_math, geometry
-from soap_tpu_torch.ops import inertia_loop, range_gather
+from soap_tpu_torch.ops import inertia_loop, range_gather, reductions
 from soap_tpu_torch.ops.grid import halo_cell_ranges
 from soap_tpu_torch.ops.range_gather import (
     merge_adjacent_ranges,
@@ -296,13 +296,19 @@ def _spec_truncatable(spec: HaloTypeSpec) -> bool:
     return spec.kind in ("aperture", "projected") and spec.radius_property is None
 
 
+def _dag_counts() -> Tuple[int, int]:
+    """The calling thread's K2 launches and K3 sums so far."""
+    return inertia_loop.launches_here(), reductions.launches_here()
+
+
 def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[int] = None,
-             k2_by_group: Optional[Dict[str, int]] = None):
+             stats: Optional[EngineStats] = None):
     """Property evaluation over all specs for one bucket: one shared
     radius sort, then each family's slices, in spec order (a radius
     multiple or a property-sized aperture reads an earlier spec's
-    results).  ``k2_by_group`` gains the inertia-loop launches of each
-    family (or lone spec) under its first group.
+    results).  ``stats`` gains the inertia-loop launches (K2) and the
+    particle sums run by K3 of each family (or lone spec) under its
+    first group.
 
     ``trunc``: sorted-prefix row truncation.  Truncatable specs run on
     the first ``trunc`` radius-sorted rows (prefix slices of the sort
@@ -360,6 +366,7 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
             L = len(members)
             spec0 = members[0]
             family = trace.start("dag.family", group=spec0.group, lanes=L)
+            counts = _dag_counts()
             if L == 1:
                 s = _make_slice(spec0, cx, pr, scalars, prior)
             else:
@@ -375,11 +382,14 @@ def _halo_fn(ctx: HaloContext, specs: Tuple[HaloTypeSpec, ...], trunc: Optional[
                     s.__dict__["_proj_sort"] = tuple(_lanes(t, L) for t in one._proj_sort)
             else:
                 s.__dict__.update({k: _lanes(v, L) for k, v in shr.items()})
-            n_k2 = inertia_loop.launches_here()
             res = compute_properties(s, spec0.keys)
-            n_k2 = inertia_loop.launches_here() - n_k2
-            if k2_by_group is not None and n_k2:
-                k2_by_group[spec0.group] = k2_by_group.get(spec0.group, 0) + n_k2
+            if stats is not None:
+                for by, n0, n in zip(
+                    (stats.k2_launches_by_group, stats.k3_launches_by_group), counts,
+                    _dag_counts(),
+                ):
+                    if n > n0:
+                        by[spec0.group] = by.get(spec0.group, 0) + n - n0
             B = scalars.index.shape[0]
             for i, spec in enumerate(members):
                 r = {k: v[i * B : (i + 1) * B] for k, v in res.items()}
@@ -407,8 +417,7 @@ def _process_bucket(
     is_central: torch.Tensor,  # (B,) bool
     fof_id: torch.Tensor,  # (B,) i64
     trunc: Optional[int] = None,  # sorted-prefix row truncation
-    k1_by_ptype: Optional[Dict[str, int]] = None,  # K1 launches, added per ptype
-    k2_by_group: Optional[Dict[str, int]] = None,  # K2 launches, added per family
+    stats: Optional[EngineStats] = None,  # gains the kernels' launches
 ):
     """One padded bucket: range gather (one K1 call per particle type) +
     every property calculation.  Each type's extra datasets ride along as
@@ -426,10 +435,9 @@ def _process_bucket(
         starts, counts = merge_adjacent_ranges(starts, counts)
         n_k1 = range_gather.launches_here()
         gf, valid, _, total = range_gather_rows(pt.packed, starts, counts, S, cap)
-        if k1_by_ptype is not None:
-            k1_by_ptype[ptype] = (
-                k1_by_ptype.get(ptype, 0) + range_gather.launches_here() - n_k1
-            )
+        if stats is not None:
+            by = stats.k1_launches_by_ptype
+            by[ptype] = by.get(ptype, 0) + range_gather.launches_here() - n_k1
         overflow = overflow | (total > cap)
 
         def fld(name):
@@ -481,7 +489,7 @@ def _process_bucket(
         is_central=is_central,
         fof_id=fof_id,
     )
-    out = _halo_fn(ctx, specs, trunc, k2_by_group)(parts, scalars)
+    out = _halo_fn(ctx, specs, trunc, stats)(parts, scalars)
     for res in out.values():
         res["__needs_bigger__"] = res["__needs_bigger__"] & ~overflow
     return out, overflow
@@ -591,6 +599,8 @@ class EngineStats:
     #: launches of the inertia-loop kernel (K2) by the first group of
     #: the family (or lone spec) that made them
     k2_launches_by_group: Dict[str, int] = field(default_factory=dict)
+    #: particle sums run by the particle-sum kernel (K3), likewise
+    k3_launches_by_group: Dict[str, int] = field(default_factory=dict)
     #: bucket programs (one per tile and worker with halos) by worker,
     #: as ``"<worker>@<device>"``, and their wall seconds, each from its
     #: inputs' upload to its results on the host
@@ -1130,7 +1140,7 @@ class HaloEngine:
                 with trace.span("engine.issue", worker=name):
                     out, overflow = _process_bucket(
                         ctx, pl["specs"], pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
-                        stats.k1_launches_by_ptype, stats.k2_launches_by_group,
+                        stats,
                     )
                 with trace.span("engine.to_host", worker=name):
                     out = _to_host(out, nb)
@@ -1152,8 +1162,7 @@ class HaloEngine:
             tup = (by_group[src], spec) if src in by_group else (spec,)
             t0 = time.perf_counter()
             o, overflow = _process_bucket(
-                ctx, tup, pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"],
-                stats.k1_launches_by_ptype, stats.k2_launches_by_group,
+                ctx, tup, pl["cubes"], pl["S"], chunk, *halo_args, pl["trunc"], stats,
             )
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

@@ -340,3 +340,46 @@ def test_sphere_moments_equal_the_loops_first_iteration(name, make, seed, rows_r
         tI.sphere_moments(*args).numpy(), tloop.inertia_loop_plain(*args).numpy(),
         rtol=1e-6, atol=0.0,
     )
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_sphere_moments_of_a_folded_family_match_jax(seed):
+    """(B, C, k) sums with many configs: an SO family's 8 radii x 4
+    configs folded into C = 32 for 3 halos of 1001 rows (not a multiple
+    of 4), against the plain loop's first iteration (rtol 1e-6) and the
+    JAX single pass per halo (rtol 2e-5, atol 1e-7 of the largest
+    component)."""
+    c = _sorted_cloud(seed)
+    rng = np.random.default_rng(seed)
+    K, C = 1001, 32
+    pos = np.stack([c["pos"][:K], 1.7 * c["pos"][:K], -c["pos"][:K]])
+    w = rng.lognormal(0.0, 0.3, (3, K)).astype(np.float32)
+    masks = rng.random((3, C, K)) < np.linspace(0.2, 0.95, C)[None, :, None]
+    rmed = np.median(np.linalg.norm(pos, axis=2), axis=1)
+    R = (rmed[:, None] * np.repeat(np.linspace(0.4, 1.6, C // 4), 4)[None, :]).astype(
+        np.float32)
+    red = [i % 2 == 1 for i in range(C)]
+    it = [False] * C
+    args, _ = tI.pack_inertia_inputs(
+        torch.from_numpy(w), torch.from_numpy(pos), torch.from_numpy(masks), torch.from_numpy(R),
+        red, it,
+    )
+    np.testing.assert_allclose(
+        tI.sphere_moments(*args).numpy(), tloop.inertia_loop_plain(*args).numpy(),
+        rtol=1e-6, atol=0.0,
+    )
+    ours = tI.inertia_tensor_multi(
+        torch.from_numpy(w), torch.from_numpy(pos), torch.from_numpy(masks),
+        torch.from_numpy(R), red, it, single_pass=True,
+    )
+    for b in range(3):
+        res = jI.inertia_tensor_multi(
+            jnp.asarray(w[b]), jnp.asarray(pos[b]), jnp.asarray(masks[b]), jnp.asarray(R[b]),
+            np.asarray(red), np.asarray(it), single_pass=True,
+        )
+        np.testing.assert_array_equal(ours.found[b].numpy(), np.asarray(res.found))
+        t_j = np.asarray(res.tensor)
+        np.testing.assert_allclose(
+            ours.tensor[b].numpy(), t_j, rtol=2e-5,
+            atol=1e-7 * float(np.abs(t_j).max() + 1e-30),
+        )

@@ -41,6 +41,7 @@ from soap_tpu_torch.models.context import HaloContext
 from soap_tpu_torch.ops import inertia as inertia_ops
 from soap_tpu_torch.ops import inertia_loop as il
 from soap_tpu_torch.ops import range_gather as rg
+from soap_tpu_torch.ops import reductions as red
 from soap_tpu_torch.parallel.sharded import (
     ShardedHaloEngine, device_grid, local_devices, replicate,
 )
@@ -263,17 +264,20 @@ def test_launch_counters_under_contention(monkeypatch):
     monkeypatch.setattr(rg, "launches", 0)
     monkeypatch.setattr(il, "launches", 0)
     monkeypatch.setattr(il, "cluster_launches", {})
+    monkeypatch.setattr(red, "launches", 0)
     mine = []
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
 
     def work():
-        start = (rg.launches_here(), il.launches_here(), il.cluster_launches_here().get(7, 0))
+        start = (rg.launches_here(), il.launches_here(), il.cluster_launches_here().get(7, 0),
+                 red.launches_here())
         for _ in range(per_thread):
             rg._count_launch()
             il._count_launch(7)
+            red._count_launch()
         mine.append((rg.launches_here() - start[0], il.launches_here() - start[1],
-                     il.cluster_launches_here()[7] - start[2]))
+                     il.cluster_launches_here()[7] - start[2], red.launches_here() - start[3]))
 
     try:
         threads = [threading.Thread(target=work) for _ in range(n_threads)]
@@ -286,7 +290,8 @@ def test_launch_counters_under_contention(monkeypatch):
         sys.setswitchinterval(switch)
     n = n_threads * per_thread
     assert (rg.launches, il.launches, il.cluster_launches) == (n, n, {7: n})
-    assert mine == [(per_thread, per_thread, per_thread)] * n_threads
+    assert red.launches == n
+    assert mine == [(per_thread,) * 4] * n_threads
 
 
 # --------------------------------------------------------------- partition
